@@ -1,0 +1,65 @@
+"""Wrappers of the hand-written CUDA kernels, with their plain twins.
+
+Every wrapper takes its plain PyTorch twin for CPU tensors only.  For a
+CUDA tensor it launches its kernel (building the kernels at first use) or
+raises; it never falls back.  Each launch adds one to the kernel's count,
+so a run can show that it went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+KERNELS = ("front_dct", "symbolize_bits", "segment_offsets", "place")
+
+_launches = dict.fromkeys(KERNELS, 0)
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each kernel since the last ``reset_launch_counts``."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        _launches[name] = 0
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True if every tensor lies on the CPU (the plain twins' domain).
+
+    Raises for a mix of devices, and for any device but the CPU and CUDA.
+    """
+    devices = {t.device for t in tensors}
+    kind = next(iter(devices)).type
+    if len(devices) != 1 or kind not in ("cpu", "cuda"):
+        raise ValueError(f"tensors must all be on the CPU or all on CUDA "
+                         f"(one device), got {sorted(map(str, devices))}")
+    return kind == "cpu"
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 shape: tuple[int, ...]) -> None:
+    """Raise unless ``t`` has this dtype, shape and a contiguous layout."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` on ``device`` and PyTorch's current stream
+    there (building the kernels at first use); raise if the launch failed,
+    else count it.  ``args`` are the C entry point's, without the stream.
+    """
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _build.entry(name)(*args, stream)
+    if rc:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")
+    _launches[name] += 1

@@ -1,0 +1,135 @@
+"""Kernels B, C and D: coefficients -> Huffman fields -> packed words.
+
+* B ``symbolize_bits`` (``csrc/symbolize_bits.cu``): DC differences,
+  run-length symbols and the LUT attach; ports the symbolize and attach of
+  ``jpeg_tpu.kernels.fused._dct_attach_kernel`` and of the mega kernel.
+* C ``segment_offsets`` (``csrc/segment_offsets.cu``): exclusive block bit
+  offsets and segment totals; ports the ``carry_ref`` running sum of
+  ``_place_body`` and the offset cumsum of ``_segment_place``.
+* D ``place`` (``csrc/place.cu``): fields at their offsets in big-endian
+  words; ports ``_place_tail_full``/``_rowacc_mxu`` and
+  ``_place_acc_kernel`` plus its scatter-add.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops import dct, symbols
+from ..ops.pack import max_words_for_slots
+from . import check_tensor, launch, on_cpu
+
+# -- B: symbolize_bits -------------------------------------------------------
+
+
+def symbolize_bits_plain(coef: torch.Tensor, lut: torch.Tensor):
+    """Plain twin of ``symbolize_bits``, on any device."""
+    idx, extra, extra_n = symbols.symbolize(coef, dct.dc_diff(coef))
+    entry = lut[idx]
+    nb = (entry >> 16) + extra_n
+    value = ((entry & 0xFFFF) << extra_n) | extra
+    return (value.view(torch.uint32), nb.to(torch.uint8),
+            nb.sum(dim=-1, dtype=torch.int32))
+
+
+def symbolize_bits(coef: torch.Tensor, lut: torch.Tensor):
+    """[S, nblk, 64] int16 coefs -> (value, nbits, bits).
+
+    ``value`` uint32 and ``nbits`` uint8 are [S, nblk, 64], one Huffman
+    field (code then amplitude bits, right-aligned) per slot; ``bits`` is
+    int32 [S, nblk], the bits of each block.  Each segment restarts the DC
+    prediction.  ``lut`` is the [1024] int32 combined LUT.
+    """
+    if on_cpu(coef, lut):
+        return symbolize_bits_plain(coef, lut)
+    S, nblk, _ = coef.shape
+    check_tensor("coef", coef, torch.int16, (S, nblk, 64))
+    check_tensor("lut", lut, torch.int32, (1024,))
+    if nblk % 6:
+        raise ValueError(f"symbolize_bits: {nblk} blocks per segment is not "
+                         f"a whole number of 4:2:0 MCUs")
+    dev = coef.device
+    value = torch.empty((S, nblk, 64), dtype=torch.uint32, device=dev)
+    nbits = torch.empty((S, nblk, 64), dtype=torch.uint8, device=dev)
+    bits = torch.empty((S, nblk), dtype=torch.int32, device=dev)
+    launch("symbolize_bits", dev, coef.data_ptr(), lut.data_ptr(),
+           value.data_ptr(), nbits.data_ptr(), bits.data_ptr(), S, nblk)
+    return value, nbits, bits
+
+
+# -- C: segment_offsets ------------------------------------------------------
+
+
+def segment_offsets_plain(bits: torch.Tensor):
+    """Plain twin of ``segment_offsets``, on any device."""
+    ends = torch.cumsum(bits, dim=-1, dtype=torch.int32)
+    return ends - bits, ends[:, -1].contiguous()
+
+
+def segment_offsets(bits: torch.Tensor):
+    """[S, nblk] int32 block bits -> (offsets [S, nblk], totals [S]) int32.
+
+    Offsets are exclusive and restart at 0 in every segment.
+    """
+    if on_cpu(bits):
+        return segment_offsets_plain(bits)
+    S, nblk = bits.shape
+    check_tensor("bits", bits, torch.int32, (S, nblk))
+    offs = torch.empty_like(bits)
+    totals = torch.empty((S,), dtype=torch.int32, device=bits.device)
+    launch("segment_offsets", bits.device, bits.data_ptr(), offs.data_ptr(),
+           totals.data_ptr(), S, nblk)
+    return offs, totals
+
+
+# -- D: place ----------------------------------------------------------------
+
+
+def place_plain(value: torch.Tensor, nbits: torch.Tensor,
+                offs: torch.Tensor, seg_words: int) -> torch.Tensor:
+    """Plain twin of ``place``, on any device."""
+    S = value.shape[0]
+    v = value.view(torch.int32).to(torch.int64)
+    nb = nbits.to(torch.int64)
+    o = offs.to(torch.int64)[..., None] + torch.cumsum(nb, dim=-1) - nb
+    w = o >> 5
+    e = (o & 31) + nb
+    hi = torch.where(e <= 32, v << (32 - e).clamp(min=0),
+                     v >> (e - 32).clamp(min=0))
+    lo = torch.where(e > 32, (v << (64 - e).clamp(max=63)) & 0xFFFFFFFF,
+                     torch.zeros_like(v))
+    seg_base = (torch.arange(S, device=v.device) * seg_words)[:, None, None]
+    # one spare word takes the (always zero) lo half past the last word
+    flat = torch.zeros(S * seg_words + 1, dtype=torch.int64, device=v.device)
+    # the fields' bit ranges are disjoint, so adding them is OR-ing them
+    flat.index_add_(0, (seg_base + w).reshape(-1), hi.reshape(-1))
+    flat.index_add_(0, (seg_base + w + 1).reshape(-1), lo.reshape(-1))
+    words = flat[:-1].reshape(S, seg_words)
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return words.to(torch.int32).view(torch.uint32)
+
+
+def place(value: torch.Tensor, nbits: torch.Tensor, offs: torch.Tensor,
+          seg_words: int) -> torch.Tensor:
+    """Fields at their bit offsets -> words uint32 [S, seg_words].
+
+    ``value``/``nbits`` are ``symbolize_bits``' fields, ``offs`` the block
+    offsets of ``segment_offsets``.  Bit i of a segment's stream is bit
+    ``31 - (i & 31)`` of word ``i >> 5``; the words past the stream are 0.
+    """
+    if on_cpu(value, nbits, offs):
+        return place_plain(value, nbits, offs, seg_words)
+    S, nblk, _ = value.shape
+    check_tensor("value", value, torch.uint32, (S, nblk, 64))
+    check_tensor("nbits", nbits, torch.uint8, (S, nblk, 64))
+    check_tensor("offs", offs, torch.int32, (S, nblk))
+    # the kernel's atomics are unchecked: the buffer must hold the worst
+    # case of every slot, and bit offsets must fit int32
+    need = max_words_for_slots(nblk * 64)
+    if seg_words < need or seg_words * 32 >= 2 ** 31:
+        raise ValueError(f"place: seg_words={seg_words} must be in "
+                         f"[{need}, 2^26) for {nblk} blocks per segment")
+    words = torch.empty((S, seg_words), dtype=torch.uint32,
+                        device=value.device)
+    launch("place", value.device, value.data_ptr(), nbits.data_ptr(),
+           offs.data_ptr(), words.data_ptr(), S, nblk, seg_words)
+    return words

@@ -1,0 +1,67 @@
+"""Card-only checks of the port's CUDA kernels (marker ``cuda``).
+
+They skip, with a reason, where no CUDA device is present; on the card
+(``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``; the
+suite's conftest imports jax, which the card machine lacks) each kernel
+must equal its plain twin exactly, and the encoder's bytes must equal the
+CPU path's.  ``chip_smoke.py`` runs the same checks at full size.  No jax
+here."""
+import numpy as np
+import pytest
+import torch
+
+from jpeg_tpu_torch import EncodeConfig, FastBatchEncoder
+from jpeg_tpu_torch.kernels import (fused, front, launch_counts,
+                                    reset_launch_counts)
+from jpeg_tpu_torch.ops.dct import set_exact_matmul
+
+from chip_smoke import synthetic_batch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    set_exact_matmul()
+    return torch.device("cuda", 0)
+
+
+def _i32(t):
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+@pytest.mark.parametrize("quality", [None, 75, 100])
+def test_kernels_equal_plain_twins(dev, quality):
+    cfg = EncodeConfig(scan_layout="interleaved", huffman="fixed",
+                       quality=quality, restart_interval_mcu_rows=5)
+    enc = FastBatchEncoder(160, 96, cfg, device=dev)
+    imgs = synthetic_batch(np.random.default_rng(31), 2, 160, 96)
+    x = torch.from_numpy(imgs).to(dev).reshape(2, 160, 96 * 3)
+    c = (enc._m, enc._bias, enc._ql, enc._qc)
+    coef = front.front_dct(x, *c)
+    assert torch.equal(coef, front.front_dct_plain(x, *c))
+    coef = coef.view(4, -1, 64)
+    fields = fused.symbolize_bits(coef, enc._lut)
+    for a, b in zip(fields, fused.symbolize_bits_plain(coef, enc._lut)):
+        assert torch.equal(_i32(a), _i32(b))
+    offs = fused.segment_offsets(fields[2])
+    for a, b in zip(offs, fused.segment_offsets_plain(fields[2])):
+        assert torch.equal(a, b)
+    sw = enc.seg_rows * 128
+    assert torch.equal(
+        _i32(fused.place(fields[0], fields[1], offs[0], sw)),
+        _i32(fused.place_plain(fields[0], fields[1], offs[0], sw)))
+
+
+def test_card_bytes_equal_cpu_bytes(dev):
+    imgs = synthetic_batch(np.random.default_rng(33), 2, 256, 160)
+    cfg = EncodeConfig(scan_layout="interleaved", huffman="fixed",
+                       restart_interval_mcu_rows=8)
+    reset_launch_counts()
+    got = FastBatchEncoder(256, 160, cfg, device=dev).encode_batch(imgs)
+    assert all(n == 1 for n in launch_counts().values())
+    want = FastBatchEncoder(256, 160, cfg, device="cpu").encode_batch(imgs)
+    assert got == want
+    assert np.all([len(f) > 0 for f in got])

@@ -1,0 +1,187 @@
+"""Each plain twin of the port's CUDA kernels against the jpeg_tpu Pallas
+kernel it replaces, run in interpret mode on the CPU:
+
+* kernel A's front against ``front_analyze`` (K5);
+* the A -> B -> C -> D chain against ``front_place`` (K1, the mega kernel);
+* the chain against the two-phase route ``dct_attach_pack_xt`` ->
+  ``_dct_attach_kernel`` (K6) -> ``_place_acc_kernel`` + scatter-add (K4),
+  and against its resident route ``_dct_place_kernel`` (K6r);
+* C + D against ``_segment_place``'s ``_place_resident_kernel`` (K4r) and
+  ``_place_acc_kernel`` (K4), fed with the port's own fields.
+
+Every comparison is exact equality (integers, or f32 small integers)."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from jpeg_tpu.kernels import front as jfront
+from jpeg_tpu.kernels import fused as jfused
+from jpeg_tpu_torch.kernels import fused, front
+from jpeg_tpu_torch.ops import color
+from jpeg_tpu_torch.ops.pack import rows_per_segment
+from jpeg_tpu_torch.pipelines.fast import host_constants
+
+from test_torch_ops import synthetic_images
+
+
+def _chain(x, c, n_segs, seg_rows):
+    """The port's device step on [B, H, W*3] u8: words, totals."""
+    B = x.shape[0]
+    coef = front.front_dct(x, c["m"], c["bias"], c["ql"], c["qc"])
+    coef = coef.reshape(B * n_segs, -1, 64)
+    value, nbits, bits = fused.symbolize_bits(coef, c["lut"])
+    offs, totals = fused.segment_offsets(bits)
+    return fused.place(value, nbits, offs, seg_rows * 128), totals
+
+
+def _consts(quality):
+    return {k: torch.from_numpy(v) for k, v in host_constants(quality).items()}
+
+
+def _jax_consts(c):
+    return (jnp.asarray(c["lut"].numpy())[None], jnp.asarray(c["m"].numpy()),
+            jnp.asarray(c["bias"].numpy()), jnp.asarray(c["ql"].numpy()),
+            jnp.asarray(c["qc"].numpy()))
+
+
+def test_front_matches_front_analyze():
+    imgs = synthetic_images(7, 2, 128, 128)
+    x = imgs.reshape(2, 128, 128 * 3)
+    xt = jfront.front_analyze(jnp.asarray(x), 8, 8, "420", interpret=True)
+    want = np.asarray(xt).T.reshape(2, -1, 64)
+    y, cb, cr = color.rgb_to_ycbcr_420(torch.from_numpy(imgs))
+    np.testing.assert_array_equal(color.mcu_blocks(y, cb, cr).numpy(), want)
+
+
+@pytest.mark.parametrize("h,w,n_segs,quality", [
+    (128, 128, 1, None),   # one slab, one segment
+    (160, 96, 1, 75),      # padded slab tail, phantom block columns
+    (256, 128, 2, None),   # two slab-aligned segments
+])
+def test_chain_matches_front_place(h, w, n_segs, quality):
+    imgs = synthetic_images(11, 2, h, w)
+    x = imgs.reshape(2, h, w * 3)
+    c = _consts(quality)
+    seg_rows = rows_per_segment((h // 16) * (w // 16) // n_segs * 6 * 64)
+    h_pad = -(-h // 128) * 128
+    xp = np.pad(x, ((0, 0), (0, h_pad - h), (0, 0)))
+    lut, m, bias, ql, qc = _jax_consts(c)
+    jw, jt = jfront.front_place(jnp.asarray(xp), lut, m, bias, ql, qc,
+                                w // 16, h_pad // 16, "420", seg_rows,
+                                interpret=True, real_height=h, n_segs=n_segs)
+    words, totals = _chain(torch.from_numpy(x), c, n_segs, seg_rows)
+    assert words.dtype == torch.uint32 and totals.dtype == torch.int32
+    np.testing.assert_array_equal(totals.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(words.numpy(), np.asarray(jw))
+
+
+def test_chain_matches_two_phase_route(monkeypatch):
+    """K6 ``_dct_attach_kernel`` -> K4 ``_place_acc_kernel`` + scatter:
+    the route ``dct_attach_pack_xt`` takes for segments over its VMEM
+    budget, forced here by a zero budget."""
+    imgs = synthetic_images(13, 2, 128, 128)
+    x = imgs.reshape(2, 128, 128 * 3)
+    c = _consts(None)
+    seg_rows = rows_per_segment(64 * 6 * 64)
+    lut, m, bias, ql, qc = _jax_consts(c)
+    xt = jfront.front_analyze(jnp.asarray(x), 8, 8, "420", interpret=True)
+    monkeypatch.setattr(jfused, "_RESIDENT_VMEM_BUDGET", 0)
+    jfused.dct_attach_pack_xt.clear_cache()
+    try:
+        jw, jt = jfused.dct_attach_pack_xt(lut, m, bias, ql, qc, xt, 2, 2,
+                                           6, 4, seg_rows, interpret=True)
+        jw, jt = np.asarray(jw), np.asarray(jt)
+    finally:
+        jfused.dct_attach_pack_xt.clear_cache()
+    words, totals = _chain(torch.from_numpy(x), c, 1, seg_rows)
+    np.testing.assert_array_equal(totals.numpy(), jt)
+    np.testing.assert_array_equal(words.numpy(), jw)
+
+
+def test_chain_matches_resident_dct_place():
+    """K6r ``_place_from_xt`` -> ``_dct_place_kernel``: the route
+    ``dct_attach_pack_xt`` takes when the segment fits its budget."""
+    imgs = synthetic_images(17, 2, 128, 128)
+    x = imgs.reshape(2, 128, 128 * 3)
+    c = _consts(75)
+    seg_rows = rows_per_segment(64 * 6 * 64)
+    lut, m, bias, ql, qc = _jax_consts(c)
+    xt = jfront.front_analyze(jnp.asarray(x), 8, 8, "420", interpret=True)
+    jw, jt = jfused.dct_attach_pack_xt(lut, m, bias, ql, qc, xt, 2, 2, 6, 4,
+                                       seg_rows, interpret=True)
+    words, totals = _chain(torch.from_numpy(x), c, 1, seg_rows)
+    np.testing.assert_array_equal(totals.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(words.numpy(), np.asarray(jw))
+
+
+@pytest.mark.parametrize("budget", [None, 0], ids=["K4r-resident",
+                                                   "K4-tiles"])
+def test_offsets_and_place_match_segment_place(budget, monkeypatch):
+    """C + D against ``_segment_place`` fed with the port's own B fields:
+    ``_place_resident_kernel`` (K4r) and, with a zero VMEM budget,
+    ``_place_acc_kernel`` + scatter-add (K4)."""
+    imgs = synthetic_images(19, 2, 128, 256)
+    c = _consts(None)
+    x = torch.from_numpy(imgs.reshape(2, 128, 256 * 3))
+    coef = front.front_dct(x, c["m"], c["bias"], c["ql"], c["qc"])
+    value, nbits, bits = fused.symbolize_bits(coef, c["lut"])
+    S, nblk = bits.shape
+    seg_rows = rows_per_segment(nblk * 64)
+    offs, totals = fused.segment_offsets(bits)
+    words = fused.place(value, nbits, offs, seg_rows * 128)
+
+    def t(a):  # [S, nblk, 64] -> the TPU layout [64, S * nblk] int32
+        return jnp.asarray(a.reshape(S * nblk, 64).T.astype(np.int32))
+    if budget is not None:
+        monkeypatch.setattr(jfused, "_RESIDENT_VMEM_BUDGET", budget)
+    jw, jt = jfused._segment_place(
+        t(value.view(torch.int32).numpy()), t(nbits.numpy()),
+        jnp.asarray(bits.numpy().reshape(1, -1)), S, S * nblk, seg_rows,
+        True)
+    np.testing.assert_array_equal(totals.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(words.numpy(), np.asarray(jw))
+
+
+def _bit_string_words(value, nbits, seg_words):
+    """Independent reference for ``place``: concatenate every segment's
+    fields as a string of '0'/'1' and cut it into 32-bit words."""
+    out = np.zeros((value.shape[0], seg_words), np.uint32)
+    for s in range(value.shape[0]):
+        bits = "".join(format(int(v), f"0{int(n)}b")
+                       for v, n in zip(value[s].reshape(-1),
+                                       nbits[s].reshape(-1)) if n)
+        bits += "0" * (-len(bits) % 32)
+        for i in range(0, len(bits), 32):
+            out[s, i // 32] = int(bits[i:i + 32], 2)
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_offsets_and_place_against_bit_string(seed):
+    rng = np.random.default_rng(seed)
+    S, nblk = 3, 12
+    nbits = rng.integers(0, 28, (S, nblk, 64)).astype(np.uint8)
+    nbits[rng.random((S, nblk, 64)) < 0.5] = 0
+    value = (rng.integers(0, 1 << 27, (S, nblk, 64))
+             & ((1 << nbits.astype(np.int64)) - 1)).astype(np.uint32)
+    bits = torch.from_numpy(nbits.astype(np.int32).sum(-1, dtype=np.int32))
+    offs, totals = fused.segment_offsets(bits)
+    ends = np.cumsum(bits.numpy(), axis=-1)
+    np.testing.assert_array_equal(offs.numpy(), ends - bits.numpy())
+    np.testing.assert_array_equal(totals.numpy(), ends[:, -1])
+    seg_words = int(ends.max()) // 32 + 3
+    words = fused.place(torch.from_numpy(value), torch.from_numpy(nbits),
+                        offs, seg_words)
+    np.testing.assert_array_equal(words.numpy(),
+                                  _bit_string_words(value, nbits, seg_words))
+
+
+@pytest.mark.parametrize("const_device", ["cpu", "meta"],
+                         ids=["mixed", "not-cpu-or-cuda"])
+def test_wrappers_reject_mixed_devices(const_device):
+    x = torch.zeros((1, 16, 48), dtype=torch.uint8, device="meta")
+    c = {k: v.to(const_device) for k, v in _consts(None).items()}
+    with pytest.raises(ValueError, match="on the CPU or all on CUDA"):
+        front.front_dct(x, c["m"], c["bias"], c["ql"], c["qc"])
