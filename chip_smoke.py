@@ -6,27 +6,37 @@
 Phases, each of which raises (and so exits non-zero) on any failure:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
-   and the build of the four CUDA kernels from ``jpeg_tpu_torch/csrc``;
+   the build of the six CUDA kernels from ``jpeg_tpu_torch/csrc`` and of
+   the port's native host library (g++);
 2. every kernel against its plain PyTorch twin on the card, at the shapes
-   of a 16x640x640 batch; integer outputs must be exactly equal;
+   of a 16x640x640 batch (E with and without the dynamic-sampled mask, F
+   with each mode's LUTs); integer outputs must be exactly equal;
 3. ``FastBatchEncoder.encode_batch`` on 16x640x640, 4x1920x1280 and
-   2x1920x1088 with 4 restart segments: the launch counts are reset just
-   before and read just after; the JPEG bytes must equal those of the same
-   encoder on the CPU (the plain twins), one image must decode with
-   ``jpeg_tpu.golden.decoder`` at a sane PSNR, and the restart files must
-   carry DRI and RSTn markers;
-4. CUDA-event timings: the median of ``--runs`` warm runs of the device
-   step and of ``encode_batch`` per geometry, and of each kernel next to
-   its plain twin.
+   2x1920x1088 with 4 restart segments, once per Huffman mode ("fixed",
+   "dynamic", "dynamic-sampled"): the launch counts are reset just before
+   each mode's run and read just after; the JPEG bytes must equal those
+   of the same encoder on the CPU (the plain twins; the dynamic modes
+   compare the first 4 images of a batch, since each image's tables are
+   its own), image 0 of 16x640x640 must decode with the port's
+   ``golden.decoder`` at PSNR > 28 dB, the dynamic files' DHT segments
+   must differ from the fixed tables', and the restart files must carry
+   DRI and RSTn markers;
+4. timings: the median of ``--runs`` warm runs of the device step (fixed)
+   or ``dynamic_pack`` (dynamic) and of ``encode_batch`` per geometry and
+   mode, the dynamic path's host split, and each kernel next to its plain
+   twin, its bound and, where one PyTorch call computes the same
+   function, that call.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 the JSON verdict.  Inputs are synthetic images (smooth gradients plus hard
-edges) made with numpy from ``--seed``.  Needs one CUDA card and ``nvcc``.
+edges) made with numpy from ``--seed``.  Needs one CUDA card, ``nvcc``
+and ``g++``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -35,25 +45,45 @@ import time
 import numpy as np
 import torch
 
-from jpeg_tpu.golden import decoder as golden
-from jpeg_tpu_torch import EncodeConfig, FastBatchEncoder, _build
+from jpeg_tpu_torch import EncodeConfig, FastBatchEncoder, _build, native
+from jpeg_tpu_torch.golden import decoder as golden
 from jpeg_tpu_torch.kernels import (fused, front, launch_counts,
                                     reset_launch_counts)
 from jpeg_tpu_torch.ops.dct import set_exact_matmul
 
 # (batch, height, width, restart_interval_mcu_rows)
 GEOMETRIES = [(16, 640, 640, 0), (4, 1280, 1920, 0), (2, 1088, 1920, 17)]
+MODES = ["fixed", "dynamic", "dynamic-sampled"]
+CPU_IMAGES_DYNAMIC = 4  # images of a batch the dynamic modes check on the CPU
 
+# kernel -> (source, the TPU kernels it replaces: file:line of pallas_call)
 KERNEL_INFO = {
     "front_dct": ("jpeg_tpu_torch/csrc/front_dct.cu",
-                  "jpeg_tpu/kernels/front.py:502"),
+                  "jpeg_tpu/kernels/front.py:502 (K5); front half of "
+                  "front.py:823 (K1) and front.py:916 (K2); DCT of "
+                  "fused.py:576 (K6)"),
     "symbolize_bits": ("jpeg_tpu_torch/csrc/symbolize_bits.cu",
-                       "jpeg_tpu/kernels/fused.py:576"),
+                       "jpeg_tpu/kernels/fused.py:576 (K6); symbolize + "
+                       "attach of front.py:823 (K1) and fused.py:509 (K6r)"),
     "segment_offsets": ("jpeg_tpu_torch/csrc/segment_offsets.cu",
-                        "jpeg_tpu/kernels/front.py:823"),
+                        "jpeg_tpu/kernels/fused.py:1388 (K4), fused.py:1358 "
+                        "(K4r); offsets of front.py:823 (K1) and "
+                        "fused.py:642 (K3)"),
     "place": ("jpeg_tpu_torch/csrc/place.cu",
-              "jpeg_tpu/kernels/fused.py:1388"),
+              "jpeg_tpu/kernels/fused.py:1388 (K4), fused.py:1358 (K4r); "
+              "place of front.py:823 (K1) and fused.py:642 (K3)"),
+    "symbolize_fields": ("jpeg_tpu_torch/csrc/symbolize_fields.cu",
+                         "jpeg_tpu/kernels/front.py:916 (K2, after its "
+                         "front), fused.py:800 (K9), fused.py:829 (K10)"),
+    "attach_pf": ("jpeg_tpu_torch/csrc/attach_pf.cu",
+                  "jpeg_tpu/kernels/fused.py:642 (K3, before its place), "
+                  "fused.py:918 (K11)"),
 }
+
+# NVIDIA's H100 SXM data sheet: HBM3 rate, FP32 rate outside the tensor
+# cores (at the 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 
 def synthetic_batch(rng: np.random.Generator, b: int, h: int,
@@ -130,6 +160,113 @@ def host_ms(fn, runs: int) -> float:
     return statistics.median(times)
 
 
+def config(mode: str, restart_rows: int = 0) -> EncodeConfig:
+    return EncodeConfig(scan_layout="interleaved", huffman=mode,
+                        restart_interval_mcu_rows=restart_rows)
+
+
+def dht_segments(data: bytes) -> list[bytes]:
+    """The DHT segments of a JPEG file's header, up to its SOS."""
+    out, pos = [], 2
+    while data[pos + 1] != 0xDA:
+        n = (data[pos + 2] << 8) | data[pos + 3]
+        if data[pos + 1] == 0xC4:
+            out.append(data[pos:pos + 2 + n])
+        pos += 2 + n
+    return out
+
+
+def bounds(B: int, H: int, W: int, n_segs: int, seg_words: int):
+    """kernel -> (bound_ms, bound_by): the least time the card could take
+    for each kernel's work at this geometry, the larger of its bytes (each
+    input read once, each output written once) over the HBM rate and its
+    operations (A: the DCT's 64x64 FMAs per block) over the FP32 rate."""
+    nblocks = B * (H // 16) * (W // 16) * 6
+    slots = nblocks * 64
+    bytes_ = {
+        "front_dct": B * H * W * 3 + slots * 2 + (64 * 64 + 3 * 64) * 4,
+        "symbolize_bits": slots * 2 + 4096 + slots * 5 + nblocks * 4,
+        "segment_offsets": nblocks * 4 * 2 + B * n_segs * 4,
+        "place": slots * 5 + nblocks * 4 + B * n_segs * seg_words * 4,
+        "symbolize_fields": slots * 2 + slots * 4 + B * 4096,
+        "attach_pf": slots * 4 + B * 4096 + slots * 5 + nblocks * 4,
+    }
+    flops = {"front_dct": nblocks * 64 * 64 * 2}
+    out = {}
+    for name, nbytes in bytes_.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops.get(name, 0) / FP32_FLOP_PER_S * 1e3
+        out[name] = ((t_ops, "operations") if t_ops > t_bytes
+                     else (t_bytes, "bytes"))
+    return out
+
+
+def dynamic_split(e: FastBatchEncoder, xd: torch.Tensor,
+                  runs: int) -> dict[str, float]:
+    """Medians of the parts of one dynamic ``encode_batch``, each ended by
+    a sync: stage 1 (A + E), the histogram fetch, the K.2 builds and LUTs,
+    the LUT upload, stage 2 (F + C + D), the words fetch, the file
+    assembly."""
+    names = ("stage 1", "hist fetch", "K.2 builds + LUTs", "LUT upload",
+             "stage 2", "words fetch", "assembly")
+    parts: dict[str, list[float]] = {k: [] for k in names}
+    for i in range(3 + runs):
+        t = [time.perf_counter()]
+        pf, hist = e._analyze_hist(e._check_batch(xd))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        hist = hist.cpu().numpy()
+        t.append(time.perf_counter())
+        tables, luts = e._build_tables_batch(hist, smooth=e._sampled)
+        t.append(time.perf_counter())
+        luts = torch.from_numpy(luts).to(e.device)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        words, totals = e._pack_only(pf, luts)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        host = e._fetch(words, totals)
+        t.append(time.perf_counter())
+        e._assemble(*host, tables)
+        t.append(time.perf_counter())
+        if i >= 3:  # three warm-up runs
+            for k, a, b in zip(names, t, t[1:]):
+                parts[k].append((b - a) * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def device_profile(fn, runs: int) -> tuple[dict[str, float], float]:
+    """torch.profiler over ``runs`` warm calls of ``fn``: (device µs per
+    call by kernel or copy name, the device's idle share of the wall
+    time).  Empty names mean the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    per_call = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        # "(anonymous namespace)::place_kernel(unsigned int const*, ...)"
+        # -> "place_kernel"
+        name = ev.key.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].strip() or ev.key
+        per_call[name] = per_call.get(name, 0.0) + us / runs
+    busy = sum(per_call.values()) * runs
+    return per_call, 1.0 - busy / wall_us
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -139,10 +276,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     rng = np.random.default_rng(args.seed)
-    cfg = EncodeConfig(scan_layout="interleaved", huffman="fixed")
     dev = torch.device("cuda", 0)
 
-    # -- phase 1: the card and the build -----------------------------------
+    # -- phase 1: the card and the builds ----------------------------------
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -152,11 +288,17 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     set_exact_matmul()
     _build.entry("front_dct")
-    print(f"build: 4 kernels (nvcc, sm_90a) in {_build.build_seconds:.1f} s")
+    print(f"build: {len(_build.SIGNATURES)} kernels (nvcc, sm_90a) in "
+          f"{_build.build_seconds:.1f} s")
+    native.load()
+    print(f"build: native host library (g++) in "
+          f"{native.build_seconds:.1f} s; host CPUs: "
+          f"{len(os.sched_getaffinity(0))} usable of {os.cpu_count()}")
 
     # -- phase 2: every kernel against its plain twin ------------------------
     B, H, W, _ = GEOMETRIES[0]
-    enc = FastBatchEncoder(H, W, cfg, device=dev)
+    enc = FastBatchEncoder(H, W, config("fixed"), device=dev)
+    mask = FastBatchEncoder(H, W, config("dynamic-sampled"), device=dev)._mask
     x = torch.from_numpy(synthetic_batch(rng, B, H, W)).to(dev)
     x = x.reshape(B, H, W * 3)
     consts = (enc._m, enc._bias, enc._ql, enc._qc)
@@ -165,6 +307,12 @@ def main() -> int:
     coef = front.front_dct_plain(x, *consts).view(B, nblk, 64)
     fields = fused.symbolize_bits_plain(coef, enc._lut)
     offs = fused.segment_offsets_plain(fields[2])
+    pf = fused.symbolize_fields_plain(coef, B)[0]
+    luts = {}
+    for mode, m in (("dynamic", None), ("dynamic-sampled", mask)):
+        h = fused.symbolize_fields_plain(coef, B, m)[1]
+        luts[mode] = torch.from_numpy(FastBatchEncoder._build_tables_batch(
+            h.cpu().numpy(), smooth=m is not None)[1]).to(dev)
     calls = {
         "front_dct": (lambda: front.front_dct(x, *consts),
                       lambda: front.front_dct_plain(x, *consts)),
@@ -177,90 +325,164 @@ def main() -> int:
                                       seg_words),
                   lambda: fused.place_plain(fields[0], fields[1], offs[0],
                                             seg_words)),
+        "symbolize_fields": (lambda: fused.symbolize_fields(coef, B),
+                             lambda: fused.symbolize_fields_plain(coef, B)),
+        "attach_pf": (lambda: fused.attach_pf(pf, luts["dynamic"]),
+                      lambda: fused.attach_pf_plain(pf, luts["dynamic"])),
+    }
+    # the other mode of E and F, checked but not timed
+    more_checks = {
+        "symbolize_fields": (
+            "mask on", lambda: fused.symbolize_fields(coef, B, mask),
+            lambda: fused.symbolize_fields_plain(coef, B, mask)),
+        "attach_pf": (
+            "dynamic-sampled LUTs",
+            lambda: fused.attach_pf(pf, luts["dynamic-sampled"]),
+            lambda: fused.attach_pf_plain(pf, luts["dynamic-sampled"])),
+    }
+    # one PyTorch call computing the same function, where there is one:
+    # C's offsets are a cumsum; E's histogram is one bincount (the image
+    # offset folded into the index)
+    image_base = torch.arange(B, device=dev)[:, None, None] * 1024
+    library = {
+        "segment_offsets": lambda: torch.cumsum(fields[2], dim=-1),
+        "symbolize_fields": lambda: torch.bincount(
+            (image_base + (pf & 1023).view(B, -1, 64)).view(-1),
+            minlength=B * 1024),
     }
     errs = {}
     for name, (kernel, plain) in calls.items():
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        errs[name] = max_abs_err(got, want)
-        shapes = ", ".join(f"{tuple(g.shape)} {g.dtype}" for g in got)
-        print(f"kernel {name}: {shapes}: max_abs_err {errs[name]} "
-              f"(tolerance: exact)")
-        if errs[name]:
-            raise AssertionError(f"kernel {name} disagrees with its plain "
-                                 f"twin: max_abs_err {errs[name]}")
+        checks = [("", kernel, plain)]
+        if name in more_checks:
+            checks.append(more_checks[name])
+        errs[name] = 0
+        for label, k_fn, p_fn in checks:
+            got, want = k_fn(), p_fn()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max_abs_err(got, want)
+            errs[name] = max(errs[name], err)
+            shapes = ", ".join(f"{tuple(g.shape)} {g.dtype}" for g in got)
+            print(f"kernel {name}{f' ({label})' if label else ''}: {shapes}: "
+                  f"max_abs_err {err} (tolerance: exact)")
+            if err:
+                raise AssertionError(f"kernel {name} disagrees with its "
+                                     f"plain twin: max_abs_err {err}")
 
-    # -- phase 3: the main path, through encode_batch ------------------------
+    # -- phase 3: the main path, through encode_batch, per mode --------------
     batches = [synthetic_batch(rng, b, h, w) for b, h, w, _ in GEOMETRIES]
-    encoders = [FastBatchEncoder(
-        h, w, EncodeConfig(scan_layout="interleaved", huffman="fixed",
-                           restart_interval_mcu_rows=r), device=dev)
-        for _, h, w, r in GEOMETRIES]
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    outputs = [e.encode_batch(bt) for e, bt in zip(encoders, batches)]
-    launches = launch_counts()
-    print(f"main path launches: {json.dumps(launches)}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
-    for (b, h, w, r), bt, files in zip(GEOMETRIES, batches, outputs):
-        ref = FastBatchEncoder(
-            h, w, EncodeConfig(scan_layout="interleaved", huffman="fixed",
-                               restart_interval_mcu_rows=r),
-            device="cpu").encode_batch(bt)
-        same = sum(f == g for f, g in zip(files, ref))
-        print(f"geometry {b}x{h}x{w} restart_rows={r}: {same}/{b} files "
-              f"byte-identical to the CPU plain path, "
-              f"{sum(map(len, files))} bytes")
-        if same != b:
-            raise AssertionError(f"{b}x{h}x{w}: card and CPU bytes differ")
-        if r:
-            n_segs = (h // 16) // r
-            for f in files:
-                rst = sum(f.count(bytes([0xFF, 0xD0 + i])) for i in range(8))
-                if b"\xff\xdd" not in f or rst != n_segs - 1:
-                    raise AssertionError(f"restart file lacks DRI or has "
-                                         f"{rst} RSTn, want {n_segs - 1}")
-            print(f"  DRI present, {n_segs - 1} RSTn markers per file")
-    img0 = batches[0][0]
-    dec = golden.decode(outputs[0][0])
-    if dec.shape != img0.shape:
-        raise AssertionError(f"decoded shape {dec.shape} != {img0.shape}")
-    quality_db = golden.psnr(img0, dec)
-    print(f"golden decode of image 0 ({H}x{W}): PSNR {quality_db:.2f} dB")
-    # these synthetic images give about 32 dB at the unscaled T.81 tables
-    if not quality_db > 28.0:
-        raise AssertionError(f"PSNR {quality_db:.2f} dB <= 28 dB")
+    encoders = {mode: [FastBatchEncoder(h, w, config(mode, r), device=dev)
+                       for _, h, w, r in GEOMETRIES] for mode in MODES}
+    dynamic_path = ("front_dct", "symbolize_fields", "attach_pf",
+                    "segment_offsets", "place")
+    path_kernels = {"fixed": ("front_dct", "symbolize_bits",
+                              "segment_offsets", "place"),
+                    "dynamic": dynamic_path,
+                    "dynamic-sampled": dynamic_path}
+    launches = dict.fromkeys(calls, 0)
+    fixed_dht = None
+    for mode in MODES:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        outputs = [e.encode_batch(bt)
+                   for e, bt in zip(encoders[mode], batches)]
+        counts = launch_counts()
+        print(f"main path {mode}: launches {json.dumps(counts)}")
+        for name in path_kernels[mode]:
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the "
+                                     f"{mode} path")
+        for name, n in counts.items():
+            launches[name] += n
+        for (b, h, w, r), bt, files in zip(GEOMETRIES, batches, outputs):
+            n_ref = b if mode == "fixed" else min(b, CPU_IMAGES_DYNAMIC)
+            ref = FastBatchEncoder(h, w, config(mode, r),
+                                   device="cpu").encode_batch(bt[:n_ref])
+            same = sum(f == g for f, g in zip(files, ref))
+            print(f"{mode} {b}x{h}x{w} restart_rows={r}: {same}/{n_ref} "
+                  f"files byte-identical to the CPU plain path (the first "
+                  f"{n_ref} of {b}), {sum(map(len, files))} bytes")
+            if same != n_ref:
+                raise AssertionError(f"{mode} {b}x{h}x{w}: card and CPU "
+                                     f"bytes differ")
+            dhts = [dht_segments(f) for f in files]
+            if mode == "fixed":
+                fixed_dht = dhts[0]
+            elif any(d == fixed_dht or len(d) != 4 for d in dhts):
+                raise AssertionError(f"{mode} {b}x{h}x{w}: a file carries "
+                                     f"the fixed tables")
+            if r:
+                n_segs = (h // 16) // r
+                for f in files:
+                    rst = sum(f.count(bytes([0xFF, 0xD0 + i]))
+                              for i in range(8))
+                    if b"\xff\xdd" not in f or rst != n_segs - 1:
+                        raise AssertionError(f"restart file lacks DRI or has "
+                                             f"{rst} RSTn, want {n_segs - 1}")
+                print(f"  DRI present, {n_segs - 1} RSTn markers per file")
+        img0 = batches[0][0]
+        dec = golden.decode(outputs[0][0])
+        if dec.shape != img0.shape:
+            raise AssertionError(f"decoded shape {dec.shape} != {img0.shape}")
+        quality_db = golden.psnr(img0, dec)
+        print(f"{mode}: golden decode of image 0 ({H}x{W}): PSNR "
+              f"{quality_db:.2f} dB")
+        # these synthetic images give about 32 dB at the unscaled T.81 tables
+        if not quality_db > 28.0:
+            raise AssertionError(f"PSNR {quality_db:.2f} dB <= 28 dB")
 
     # -- phase 4: timings ----------------------------------------------------
-    for (b, h, w, r), bt, e in zip(GEOMETRIES, batches, encoders):
-        xd = torch.from_numpy(bt).to(dev)
-        step_ms = cuda_ms(lambda: e.step(xd), args.runs)
-        enc_ms = host_ms(lambda: e.encode_batch(xd), args.runs)
-        mp = b * h * w / 1e6
-        print(f"timing {b}x{h}x{w} restart_rows={r} on [{card}]: device step "
-              f"{step_ms:.4f} ms ({mp / step_ms * 1e3:.1f} MP/s), "
-              f"encode_batch {enc_ms:.4f} ms ({mp / enc_ms * 1e3:.1f} MP/s); "
-              f"median of {args.runs}")
+    for mode in MODES:
+        for (b, h, w, r), bt, e in zip(GEOMETRIES, batches, encoders[mode]):
+            xd = torch.from_numpy(bt).to(dev)
+            mp = b * h * w / 1e6
+            if mode == "fixed":
+                dev_ms = cuda_ms(lambda: e.step(xd), args.runs)
+                what = "device step"
+            else:
+                def pack():
+                    e.dynamic_pack(xd)
+                    torch.cuda.synchronize()
+                dev_ms = host_ms(pack, args.runs)
+                what = "dynamic_pack"
+            enc_ms = host_ms(lambda: e.encode_batch(xd), args.runs)
+            print(f"timing {mode} {b}x{h}x{w} restart_rows={r} on [{card}]: "
+                  f"{what} {dev_ms:.4f} ms ({mp / dev_ms * 1e3:.1f} MP/s), "
+                  f"encode_batch {enc_ms:.4f} ms "
+                  f"({mp / enc_ms * 1e3:.1f} MP/s); median of {args.runs}")
+            if mode != "fixed":
+                split = dynamic_split(e, xd, args.runs)
+                print(f"  host split (ms, median of {args.runs}): " +
+                      ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+            per_call, idle = device_profile(lambda: e.encode_batch(xd),
+                                            args.runs)
+            print(f"  device µs per encode_batch (torch.profiler, "
+                  f"{args.runs} calls): " +
+                  ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                      per_call.items(), key=lambda kv: -kv[1])) +
+                  f"; total {sum(per_call.values()):.2f}; device idle "
+                  f"share {idle:.4f}")
     times = {}
     for name, (kernel, plain) in calls.items():
         # in turns (plain, kernel, kernel, plain), so drift hits both alike
         p0, k0, k1, p1 = (cuda_ms(f, args.runs)
                           for f in (plain, kernel, kernel, plain))
-        times[name] = ((k0 + k1) / 2, (p0 + p1) / 2)
+        lib = cuda_ms(library[name], args.runs) if name in library else None
+        times[name] = ((k0 + k1) / 2, (p0 + p1) / 2, lib)
         print(f"timing kernel {name} at {B}x{H}x{W} on [{card}]: "
               f"{times[name][0]:.4f} ms ({k0:.4f}, {k1:.4f}), plain twin "
-              f"{times[name][1]:.4f} ms ({p0:.4f}, {p1:.4f})")
+              f"{times[name][1]:.4f} ms ({p0:.4f}, {p1:.4f})"
+              + (f", one PyTorch call {lib:.4f} ms" if lib is not None
+                 else ""))
+    bound = bounds(B, H, W, enc.n_segs, seg_words)
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1], "launches": launches[name],
          "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
+         "plain_ms": times[name][1], "bound_ms": bound[name][0],
+         "bound_by": bound[name][1], "library_ms": times[name][2]}
         for name in calls]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

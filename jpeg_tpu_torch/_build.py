@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process, all
 started together, into ``_build/<name>-<hash>.so`` (a shared library with
 a plain C interface; no PyTorch headers, so a build takes seconds).  The
-hash covers the source and the flags, so an edited source rebuilds.
+hash covers the source, the ``csrc/*.cuh`` headers it includes and the
+flags, so an edited source or header rebuilds.
 
 Only a CUDA tensor reaches this module: if ``nvcc`` is missing or a build
 fails it raises, and nothing falls back to the plain versions.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -35,6 +37,9 @@ SIGNATURES = {
     "segment_offsets": ("jt_segment_offsets",
                         [_VOID] * 3 + [_INT] * 2 + [_VOID]),
     "place": ("jt_place", [_VOID] * 4 + [_INT] * 3 + [_VOID]),
+    "symbolize_fields": ("jt_symbolize_fields",
+                         [_VOID] * 4 + [_INT] * 3 + [_VOID]),
+    "attach_pf": ("jt_attach_pf", [_VOID] * 5 + [_INT] * 3 + [_VOID]),
 }
 
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # where the toolkit puts it off PATH
@@ -54,12 +59,30 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[str]:
+    """Kernel ``name``'s ``.cu`` file and the local headers it includes
+    (directly or through another local header), in include order."""
+    out = [os.path.join(SRC_DIR, name + ".cu")]
+    for path in out:
+        with open(path, "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                dep = os.path.join(os.path.dirname(path), inc.decode())
+                if dep not in out:
+                    out.append(dep)
+    return out
+
+
 def _target(name: str) -> tuple[str, str]:
-    src = os.path.join(SRC_DIR, name + ".cu")
+    srcs = sources(name)
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in srcs:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
+    src = srcs[0]
     return src, os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 

@@ -1,0 +1,107 @@
+"""JFIF marker stream emission for baseline interleaved files.
+
+The port's own copy of the parts of ``jpeg_tpu.bitstream.jfif`` that the
+batch encoder uses: SOI/APP0/DQT/DHT/SOF0/DRI, the interleaved SOS header,
+RSTn and EOI.  Bytes equal the original's (``tests/test_torch_host.py``).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..core import tables as T
+from ..huffman.build import HuffmanTable
+
+SOI = b"\xff\xd8"
+EOI = b"\xff\xd9"
+
+# APP0 JFIF header: version 1.1, no units, 72x72 density, no thumbnail
+APP0 = bytes([
+    0xFF, 0xE0, 0x00, 0x10, 0x4A, 0x46, 0x49, 0x46, 0x00,
+    0x01, 0x01, 0x00, 0x00, 0x48, 0x00, 0x48, 0x00, 0x00,
+])
+
+
+def dqt_segment(table_id: int, quantizer: np.ndarray) -> bytes:
+    """DQT with the 64 entries in zig-zag order."""
+    zz = quantizer.reshape(64)[T.SCAN_ORDER]
+    return bytes([0xFF, 0xDB, 0x00, 0x43, table_id]) + bytes(int(v) for v in zz)
+
+
+def dht_segment(tc_th: int, table: HuffmanTable) -> bytes:
+    """DHT for one table; tc_th packs class (hi nibble: 0=DC, 1=AC) and id
+    (lo nibble: 0=luma, 1=chroma)."""
+    bits = [int(table.bits[i]) for i in range(1, 17)]
+    vals = [int(v) for v in table.huffval]
+    length = 19 + len(vals)
+    return bytes([0xFF, 0xC4, (length >> 8) & 0xFF, length & 0xFF, tc_th]) + \
+        bytes(bits) + bytes(vals)
+
+
+def sof0_segment(width: int, height: int,
+                 y_sampling: tuple[int, int] = (2, 2)) -> bytes:
+    """Baseline SOF0: 3 components, Y sampling ``y_sampling``, chroma 1x1."""
+    ys = ((y_sampling[0] << 4) | y_sampling[1]) & 0xFF
+    return bytes([
+        0xFF, 0xC0, 0x00, 0x11, 0x08,
+        (height >> 8) & 0xFF, height & 0xFF,
+        (width >> 8) & 0xFF, width & 0xFF,
+        0x03,
+        0x01, ys, 0x00,
+        0x02, 0x11, 0x01,
+        0x03, 0x11, 0x01,
+    ])
+
+
+def dri_segment(restart_interval: int) -> bytes:
+    """DRI: restart interval in MCUs (16-bit field, T.81 B.2.4.4)."""
+    if not (0 < restart_interval <= 0xFFFF):
+        raise ValueError(
+            f"restart interval {restart_interval} exceeds the 16-bit DRI "
+            "field; use more segments (smaller restart_interval_mcu_rows)")
+    return bytes([0xFF, 0xDD, 0x00, 0x04,
+                  (restart_interval >> 8) & 0xFF, restart_interval & 0xFF])
+
+
+def sos_header_interleaved() -> bytes:
+    """Interleaved 3-component SOS header (Y->tables 0, Cb/Cr->tables 1)."""
+    return bytes([0xFF, 0xDA, 0x00, 0x0C, 0x03,
+                  0x01, 0x00, 0x02, 0x11, 0x03, 0x11,
+                  0x00, 0x3F, 0x00])
+
+
+def rst_marker(index: int) -> bytes:
+    """RSTn marker, n = index mod 8."""
+    return bytes([0xFF, 0xD0 + (index % 8)])
+
+
+def headers(width: int, height: int, luma_q: np.ndarray,
+            chroma_q: np.ndarray, tables: dict[str, HuffmanTable],
+            restart_interval: int = 0,
+            y_sampling: tuple[int, int] = (2, 2)) -> bytes:
+    """Everything from SOI up to (excluding) the first SOS."""
+    out = [
+        SOI,
+        APP0,
+        dqt_segment(0, luma_q),
+        dqt_segment(1, chroma_q),
+        dht_segment(0x00, tables["luma_dc"]),
+        dht_segment(0x10, tables["luma_ac"]),
+        dht_segment(0x01, tables["chroma_dc"]),
+        dht_segment(0x11, tables["chroma_ac"]),
+        sof0_segment(width, height, y_sampling=y_sampling),
+    ]
+    if restart_interval:
+        out.append(dri_segment(restart_interval))
+    return b"".join(out)
+
+
+def assemble_interleaved(header: bytes, segments: list[bytes]) -> bytes:
+    """One interleaved scan built from restart-delimited segments, with
+    RSTn markers between consecutive segments."""
+    out = [header, sos_header_interleaved()]
+    for i, seg in enumerate(segments):
+        if i:
+            out.append(rst_marker(i - 1))
+        out.append(seg)
+    out.append(EOI)
+    return b"".join(out)

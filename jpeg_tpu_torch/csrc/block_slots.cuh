@@ -1,0 +1,104 @@
+// Run-length symbolization of one 8x8 block by one warp, shared by kernel
+// B (symbolize_bits.cu) and kernel E (symbolize_fields.cu).
+//
+// Ports jpeg_tpu's kernels/fused.py::_symbolize and the DC chain of
+// _dct_symbolize_chunk_v: slot 0 carries the DC difference as (magnitude
+// class, amplitude); a nonzero AC slot carries run << 4 | class and its
+// amplitude; a zero slot that ends a run of 16 before a later nonzero is a
+// ZRL (0xF0); the slot after the last nonzero AC is the EOB (0x00) unless
+// that was slot 63.  Every other slot gets kNullIndex and no bits.  The
+// combined-LUT index of a slot is sym | is_dc << 8 | is_luma << 9.
+//
+// Lane l holds slots 2l and 2l+1.  The DC difference reads the previous
+// same-component DC straight from the input by index (no carry crosses
+// blocks); the "last nonzero AC before me" that drives runs, ZRL and EOB
+// is one warp max-scan.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace jt {
+
+// The interleaved MCU's block pattern: kYPerMcu Y blocks, then Cb and Cr.
+// 4:2:0 is Y00 Y01 Y10 Y11 Cb Cr; 4:2:2 and 4:4:4 change these two only.
+constexpr int kMcuPeriod = 6;
+constexpr int kYPerMcu = 4;
+constexpr int kNullIndex = 1023;
+
+__device__ __forceinline__ int bit_length(int a) { return 32 - __clz(a); }
+
+// One slot's LUT index and amplitude field for the symbol at slot kslot
+// with (DC-differenced) value v; prev = last nonzero AC slot before it
+// (0 if none), last = last nonzero AC slot of the block (0 if none).
+// amp is non-negative (v + 2^cls - 1 for v < 0), so it packs without sign.
+__device__ __forceinline__ void slot_fields(int kslot, int v, int prev,
+                                            int last, int luma, int* idx,
+                                            int* extra, int* extra_n) {
+  const int a = v < 0 ? -v : v;
+  const int cls = bit_length(a);
+  const int amp = v < 0 ? v + (1 << cls) - 1 : v;
+  int sym = 0, valid = 0, ex = 0, en = 0, dc = 0;
+  if (kslot == 0) {
+    sym = cls; ex = amp; en = cls; valid = 1; dc = 1;
+  } else if (v != 0) {
+    sym = (((kslot - prev - 1) & 15) << 4) | cls; ex = amp; en = cls;
+    valid = 1;
+  } else if (kslot < last && ((kslot - prev) & 15) == 0) {
+    sym = 0xF0; valid = 1;            // ZRL
+  } else if (kslot == last + 1) {
+    sym = 0x00; valid = 1;            // EOB (kslot <= 63, so last < 63)
+  }
+  *idx = valid ? (sym | (dc << 8) | (luma << 9)) : kNullIndex;
+  *extra = valid ? ex : 0;
+  *extra_n = valid ? en : 0;
+}
+
+// The (idx, extra, extra_n) fields of a lane's two slots.
+struct SlotPair {
+  int idx0, ex0, en0, idx1, ex1, en1;
+};
+
+// Symbolize block gb of [*, 64] int16 zig-zag coefficients; b is its index
+// within its segment (the DC chains restart at b = 0).  All 32 lanes of the
+// warp must call it together.
+__device__ __forceinline__ SlotPair block_slots(const int16_t* coef,
+                                                long long gb, int b,
+                                                int lane) {
+  const unsigned full = 0xffffffffu;
+  const int pos = b % kMcuPeriod;
+  const int luma = pos < kYPerMcu;
+  const uint32_t pair =
+      reinterpret_cast<const uint32_t*>(coef + gb * 64)[lane];
+  int v0 = (int)(int16_t)(pair & 0xffffu);   // slot 2*lane
+  int v1 = (int)(int16_t)(pair >> 16);       // slot 2*lane + 1
+  if (lane == 0) {
+    // previous same-component DC: the last Y of the previous MCU for its
+    // first Y block, the previous Y inside an MCU, one MCU back for chroma
+    const int d = pos == 0 ? kMcuPeriod - kYPerMcu + 1
+                           : (pos < kYPerMcu ? 1 : kMcuPeriod);
+    const int prev_dc = b >= d ? (int)coef[(gb - d) * 64] : 0;
+    v0 -= prev_dc;
+  }
+  const int k0 = 2 * lane, k1 = k0 + 1;
+  const int nz0 = lane > 0 && v0 != 0;
+  const int nz1 = v1 != 0;
+  // inclusive max-scan of "last nonzero AC slot" over the lanes
+  int incl = nz1 ? k1 : (nz0 ? k0 : 0);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(full, incl, off);
+    if (lane >= off) incl = max(incl, o);
+  }
+  int excl = __shfl_up_sync(full, incl, 1);
+  if (lane == 0) excl = 0;
+  const int last = __shfl_sync(full, incl, 31);
+  const int prev1 = nz0 ? k0 : excl;
+
+  SlotPair s;
+  slot_fields(k0, v0, excl, last, luma, &s.idx0, &s.ex0, &s.en0);
+  slot_fields(k1, v1, prev1, last, luma, &s.idx1, &s.ex1, &s.en1);
+  return s;
+}
+
+}  // namespace jt

@@ -11,7 +11,8 @@ import torch
 
 from .. import _build
 
-KERNELS = ("front_dct", "symbolize_bits", "segment_offsets", "place")
+KERNELS = ("front_dct", "symbolize_bits", "segment_offsets", "place",
+           "symbolize_fields", "attach_pf")
 
 _launches = dict.fromkeys(KERNELS, 0)
 

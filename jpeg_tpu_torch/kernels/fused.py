@@ -1,4 +1,5 @@
-"""Kernels B, C and D: coefficients -> Huffman fields -> packed words.
+"""Kernels B, C, D, E and F: coefficients -> Huffman fields -> packed
+words, and the dynamic-table stages around the histogram.
 
 * B ``symbolize_bits`` (``csrc/symbolize_bits.cu``): DC differences,
   run-length symbols and the LUT attach; ports the symbolize and attach of
@@ -9,26 +10,42 @@
 * D ``place`` (``csrc/place.cu``): fields at their offsets in big-endian
   words; ports ``_place_tail_full``/``_rowacc_mxu`` and
   ``_place_acc_kernel`` plus its scatter-add.
+* E ``symbolize_fields`` (``csrc/symbolize_fields.cu``): dynamic stage 1
+  after the front: packed symbol fields and per-image histograms; ports
+  ``front_index(emit_fields=True)``'s ``_mega_index_kernel`` after its
+  front, ``dct_index_segments`` / ``dct_symbolize_segments`` and
+  ``pipelines.fast.hist_1024_t``.
+* F ``attach_pf`` (``csrc/attach_pf.cu``): dynamic stage 2: unpack the
+  fields and attach each image's LUT, giving B's outputs for C and D;
+  ports the attach of ``_pf_place_kernel`` and ``_attach_grouped_kernel``.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops import dct, symbols
+from ..ops.color import PERIOD
 from ..ops.pack import max_words_for_slots
 from . import check_tensor, launch, on_cpu
+from .lut import NULL_INDEX
 
 # -- B: symbolize_bits -------------------------------------------------------
+
+
+def _attach_plain(entry: torch.Tensor, extra: torch.Tensor,
+                  extra_n: torch.Tensor):
+    """LUT entries (code | length << 16) + amplitude fields -> (value
+    uint32, nbits uint8, block bits int32)."""
+    nb = (entry >> 16) + extra_n
+    value = ((entry & 0xFFFF) << extra_n) | extra
+    return (value.view(torch.uint32), nb.to(torch.uint8),
+            nb.sum(dim=-1, dtype=torch.int32))
 
 
 def symbolize_bits_plain(coef: torch.Tensor, lut: torch.Tensor):
     """Plain twin of ``symbolize_bits``, on any device."""
     idx, extra, extra_n = symbols.symbolize(coef, dct.dc_diff(coef))
-    entry = lut[idx]
-    nb = (entry >> 16) + extra_n
-    value = ((entry & 0xFFFF) << extra_n) | extra
-    return (value.view(torch.uint32), nb.to(torch.uint8),
-            nb.sum(dim=-1, dtype=torch.int32))
+    return _attach_plain(lut[idx], extra, extra_n)
 
 
 def symbolize_bits(coef: torch.Tensor, lut: torch.Tensor):
@@ -44,7 +61,7 @@ def symbolize_bits(coef: torch.Tensor, lut: torch.Tensor):
     S, nblk, _ = coef.shape
     check_tensor("coef", coef, torch.int16, (S, nblk, 64))
     check_tensor("lut", lut, torch.int32, (1024,))
-    if nblk % 6:
+    if nblk % PERIOD:
         raise ValueError(f"symbolize_bits: {nblk} blocks per segment is not "
                          f"a whole number of 4:2:0 MCUs")
     dev = coef.device
@@ -133,3 +150,98 @@ def place(value: torch.Tensor, nbits: torch.Tensor, offs: torch.Tensor,
     launch("place", value.device, value.data_ptr(), nbits.data_ptr(),
            offs.data_ptr(), words.data_ptr(), S, nblk, seg_words)
     return words
+
+
+# -- E: symbolize_fields -----------------------------------------------------
+
+
+def pack_fields(idx, extra, extra_n):
+    """One int32 per slot: idx | extra_n << 10 | extra << 14 (all fields
+    non-negative; ``jpeg_tpu.kernels.fused._pack_fields``)."""
+    return idx | (extra_n << 10) | (extra << 14)
+
+
+def unpack_fields(pf):
+    """``pack_fields``' inverse -> (idx, extra, extra_n)."""
+    return pf & 1023, pf >> 14, (pf >> 10) & 15
+
+
+def symbolize_fields_plain(coef: torch.Tensor, n_images: int,
+                           mask: torch.Tensor | None = None):
+    """Plain twin of ``symbolize_fields``, on any device."""
+    idx, extra, extra_n = symbols.symbolize(coef, dct.dc_diff(coef))
+    per_image = idx.reshape(n_images, -1, 64)
+    keep = per_image != NULL_INDEX
+    if mask is not None:
+        keep &= mask.to(torch.bool)[None, :, None]
+    image = torch.arange(n_images, device=idx.device)[:, None, None]
+    flat = (image * 1024 + per_image)[keep].to(torch.int64)
+    hist = torch.bincount(flat, minlength=n_images * 1024)
+    return (pack_fields(idx, extra, extra_n),
+            hist.to(torch.int32).view(n_images, 1024))
+
+
+def symbolize_fields(coef: torch.Tensor, n_images: int,
+                     mask: torch.Tensor | None = None):
+    """[S, nblk, 64] int16 coefs of ``n_images`` images -> (pf, hist).
+
+    ``pf`` int32 [S, nblk, 64] holds each slot's ``pack_fields``; ``hist``
+    int32 [n_images, 1024] counts each image's LUT indices over its slots,
+    or over the slots of the blocks whose ``mask`` byte (uint8 [blocks per
+    image], in block order) is non-zero.  NULL slots are not counted, so
+    bin 1023 is 0.  Each image is ``S / n_images`` consecutive segments,
+    and each segment restarts the DC prediction.
+    """
+    if on_cpu(*([coef] if mask is None else [coef, mask])):
+        return symbolize_fields_plain(coef, n_images, mask)
+    S, nblk, _ = coef.shape
+    check_tensor("coef", coef, torch.int16, (S, nblk, 64))
+    if n_images < 1 or S % n_images or n_images > 65535 or nblk % PERIOD:
+        raise ValueError(f"symbolize_fields: {S} segments of {nblk} blocks "
+                         f"are not {n_images} images of whole 4:2:0 MCUs")
+    if mask is not None:
+        check_tensor("mask", mask, torch.uint8, (S // n_images * nblk,))
+    dev = coef.device
+    pf = torch.empty((S, nblk, 64), dtype=torch.int32, device=dev)
+    hist = torch.empty((n_images, 1024), dtype=torch.int32, device=dev)
+    launch("symbolize_fields", dev, coef.data_ptr(),
+           None if mask is None else mask.data_ptr(), pf.data_ptr(),
+           hist.data_ptr(), n_images, S // n_images, nblk)
+    return pf, hist
+
+
+# -- F: attach_pf ------------------------------------------------------------
+
+
+def attach_pf_plain(pf: torch.Tensor, luts: torch.Tensor):
+    """Plain twin of ``attach_pf``, on any device."""
+    S = pf.shape[0]
+    idx, extra, extra_n = unpack_fields(pf)
+    image = torch.arange(S, device=pf.device) // (S // luts.shape[0])
+    return _attach_plain(luts[image[:, None, None], idx], extra, extra_n)
+
+
+def attach_pf(pf: torch.Tensor, luts: torch.Tensor):
+    """Packed fields + per-image LUTs -> (value, nbits, bits).
+
+    ``pf`` is ``symbolize_fields``' [S, nblk, 64] int32, ``luts`` the
+    [n_images, 1024] int32 combined LUTs; segment ``s`` uses LUT
+    ``s // (S // n_images)``.  The outputs are ``symbolize_bits``'.
+    """
+    if on_cpu(pf, luts):
+        return attach_pf_plain(pf, luts)
+    S, nblk, _ = pf.shape
+    n_images = luts.shape[0]
+    check_tensor("pf", pf, torch.int32, (S, nblk, 64))
+    check_tensor("luts", luts, torch.int32, (n_images, 1024))
+    if n_images < 1 or S % n_images or n_images > 65535:
+        raise ValueError(f"attach_pf: {S} segments are not {n_images} "
+                         f"images")
+    dev = pf.device
+    value = torch.empty((S, nblk, 64), dtype=torch.uint32, device=dev)
+    nbits = torch.empty((S, nblk, 64), dtype=torch.uint8, device=dev)
+    bits = torch.empty((S, nblk), dtype=torch.int32, device=dev)
+    launch("attach_pf", dev, pf.data_ptr(), luts.data_ptr(),
+           value.data_ptr(), nbits.data_ptr(), bits.data_ptr(), n_images,
+           S // n_images, nblk)
+    return value, nbits, bits

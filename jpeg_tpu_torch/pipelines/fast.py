@@ -1,10 +1,19 @@
 """Batched interleaved encoder: the port of ``jpeg_tpu.pipelines.fast``.
 
-``FastBatchEncoder`` serves the fixed-table, f32, 4:2:0 interleaved batch
-encode.  The device step is four kernels (``kernels.front`` A,
-``kernels.fused`` B, C, D): u8 pixels -> coefficients -> Huffman fields ->
-block bit offsets -> packed words.  Then the host fetches the used word
-prefix and ``jpeg_tpu.native.assemble_interleaved`` writes the files.
+``FastBatchEncoder`` serves the f32, 4:2:0 interleaved batch encode with
+fixed, dynamic and dynamic-sampled Huffman tables.
+
+* Fixed tables: the device step is four kernels (``kernels.front`` A,
+  ``kernels.fused`` B, C, D): u8 pixels -> coefficients -> Huffman fields
+  -> block bit offsets -> packed words.
+* Dynamic tables (per image, as the reference's ``init_huffman``): stage
+  1 is A then E (packed symbol fields + per-image histograms); the host
+  fetches the histograms (one sync, 4 KB per image) and runs the K.2
+  builds; stage 2 is F (attach through each image's LUT) then C and D.
+
+Then the host fetches the used word prefix and the port's
+``native.assemble_interleaved`` writes the files, each with its own
+header.
 
 A restart segment is a contiguous range of MCU rows, so a batch of
 ``B`` images with ``S`` segments each is ``B * S`` segments in a row; the
@@ -16,18 +25,35 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jpeg_tpu import native
-from jpeg_tpu.bitstream import jfif
-from jpeg_tpu.core import tables as T
-from jpeg_tpu.core.types import EncodeConfig
-from jpeg_tpu.huffman.build import fixed_tables
-
+from .. import native
+from ..bitstream import jfif
+from ..core import tables as T
+from ..core.types import EncodeConfig
+from ..huffman.build import HuffmanTable, build_tables_batch, fixed_tables
 from ..kernels import fused, front
-from ..kernels.lut import build_combined_lut
+from ..kernels.lut import NULL_INDEX, build_combined_lut
 from ..ops import pack as ops_pack
 from ..ops.color import PERIOD
+from ..ops.sample import sample_mask
 
 _MCU = 16  # 4:2:0 MCUs are 16x16 pixels
+
+
+def _possible_symbols():
+    """(dc, ac) 0/1 masks of the symbols a baseline stream can emit given
+    the [-2048, 2047] coefficient clip: DC classes 0..12 and AC
+    (run << 4 | size) with size 1..11, plus EOB (0x00) and ZRL (0xF0)."""
+    dc = np.zeros(256, np.int64)
+    dc[:13] = 1
+    ac = np.zeros(256, np.int64)
+    ac[0] = ac[0xF0] = 1
+    for run in range(16):
+        for size in range(1, 12):
+            ac[(run << 4) | size] = 1
+    return dc, ac
+
+
+_DC_POSSIBLE, _AC_POSSIBLE = _possible_symbols()
 
 
 def host_constants(quality: int | None) -> dict[str, np.ndarray]:
@@ -47,13 +73,15 @@ def host_constants(quality: int | None) -> dict[str, np.ndarray]:
 
 
 class FastBatchEncoder:
-    """Single-device batched interleaved encoder on four CUDA kernels.
+    """Single-device batched interleaved encoder on hand-written CUDA
+    kernels.
 
-    ``device`` is where the step runs: a CUDA device launches the kernels,
+    ``device`` is where the work runs: a CUDA device launches the kernels,
     ``"cpu"`` runs their plain twins.  ``constants`` (optional) replaces
     the tables built from ``config`` with those of another encoder (see
     ``convert.constants_from_jax``); its quantizers must match the
-    config's, since the file headers carry the config's tables.
+    config's, since the file headers carry the config's tables.  Dynamic
+    modes need no ``lut`` in it.
     """
 
     def __init__(self, height: int, width: int,
@@ -70,10 +98,6 @@ class FastBatchEncoder:
                 f"subsampling={self.config.subsampling!r} is not ported yet "
                 f"(ROADMAP queue 1 item 3, main-path geometries: 4:2:2 and "
                 f"4:4:4)")
-        if self.config.huffman != "fixed":
-            raise NotImplementedError(
-                f"huffman={self.config.huffman!r} is not ported yet "
-                f"(ROADMAP queue 1 item 4, dynamic tables)")
         if self.config.dtype != "float32":
             raise NotImplementedError(
                 f"dtype={self.config.dtype!r} is not ported yet "
@@ -103,7 +127,11 @@ class FastBatchEncoder:
         self.device = torch.device(device)
 
         self._luma_q, self._chroma_q = T.quant_tables(self.config.quality)
+        self._fixed = (fixed_tables() if self.config.huffman == "fixed"
+                       else None)
         host = host_constants(self.config.quality)
+        if self._fixed is None:
+            del host["lut"]
         if constants is not None:
             for key in ("ql", "qc"):
                 if not np.array_equal(constants[key].cpu().numpy(),
@@ -116,46 +144,139 @@ class FastBatchEncoder:
                       for k, v in host.items()}
         self._m, self._bias = consts["m"], consts["bias"]
         self._ql, self._qc = consts["ql"], consts["qc"]
-        self._lut = consts["lut"]
-        interval = self.mcus_per_segment if self.n_segs > 1 else 0
-        self._header = jfif.headers(
-            self.width, self.height, self._luma_q, self._chroma_q,
-            fixed_tables(), restart_interval=interval, y_sampling=(2, 2)
-        ) + jfif.sos_header_interleaved()
+        self._lut = consts.get("lut")
+        # "dynamic-sampled": the histogram counts jpeg_tpu's sample of
+        # blocks (ops.sample), and every possible symbol gets a +1 floor
+        self._sampled = self.config.huffman == "dynamic-sampled"
+        self._mask = (torch.from_numpy(sample_mask(
+            self.height, self.width, self.n_segs)).to(self.device)
+            if self._sampled else None)
+        self._interval = self.mcus_per_segment if self.n_segs > 1 else 0
+        self._header = (self._file_header(self._fixed)
+                        if self._fixed is not None else None)
 
     # -- public API ----------------------------------------------------------
 
     def step(self, rgbs):
-        """Device step: batch -> (words [B, S, seg_rows*128] uint32,
-        total_bits [B, S] int32), both on ``self.device``."""
+        """Fixed-table device step: batch -> (words [B, S, seg_rows*128]
+        uint32, total_bits [B, S] int32), both on ``self.device``."""
+        if self._fixed is None:
+            raise ValueError("step() requires huffman='fixed'")
         x = self._check_batch(rgbs)
         B, S = x.shape[0], self.n_segs
-        coef = front.front_dct(x, self._m, self._bias, self._ql, self._qc)
-        coef = coef.view(B * S, self.blocks_per_seg, 64)
-        value, nbits, bits = fused.symbolize_bits(coef, self._lut)
+        value, nbits, bits = fused.symbolize_bits(self._coefs(x), self._lut)
         offs, totals = fused.segment_offsets(bits)
         words = fused.place(value, nbits, offs, self.seg_rows * 128)
         return words.view(B, S, -1), totals.view(B, S)
 
+    def dynamic_pack(self, rgbs):
+        """Dynamic-table path: batch -> (words [B, S, seg_rows*128] uint32,
+        totals [B, S] int32, per-image tables).
+
+        One histogram sync per batch, host K.2 builds, then the
+        per-image-LUT pack; words and totals stay on ``self.device``.
+        """
+        if self._fixed is not None:
+            raise ValueError("dynamic_pack() requires a dynamic huffman "
+                             "mode")
+        pf, hist = self._analyze_hist(self._check_batch(rgbs))
+        tables, luts = self._build_tables_batch(hist.cpu().numpy(),
+                                                smooth=self._sampled)
+        words, totals = self._pack_only(pf, torch.from_numpy(luts)
+                                        .to(self.device))
+        return words, totals, tables
+
     def encode_batch(self, rgbs) -> list[bytes]:
         """Batch of [B, H, W, 3] (or [B, H, W*3]) u8 images -> JPEG files."""
-        words, totals = self.step(rgbs)
+        if self._fixed is not None:
+            words, totals = self.step(rgbs)
+            tables = None
+        else:
+            words, totals, tables = self.dynamic_pack(rgbs)
+        return self._assemble(*self._fetch(words, totals), tables)
+
+    def _fetch(self, words: torch.Tensor, totals: torch.Tensor):
+        """Device words and totals -> host (words [B, S, cap] uint32,
+        totals [B, S] int32), fetching only the used prefix of every
+        segment's words."""
         totals_np = totals.cpu().numpy()
-        # fetch only the used prefix of every segment's words
         used = (int(totals_np.max(initial=0)) + 31) // 32 + 1
         cap = min(used, words.shape[-1])
-        words_np = words[:, :, :cap].cpu().numpy()
-        B = words_np.shape[0]
-        files = native.assemble_interleaved(
-            words_np.reshape(B * self.n_segs, cap), totals_np.reshape(-1),
-            [self._header] * B, self.n_segs)
-        if files is None:
-            raise RuntimeError("jpeg_tpu.native is unavailable (its host "
-                               "library failed to build); the port has no "
-                               "other file assembly")
-        return files
+        return words[:, :, :cap].cpu().numpy(), totals_np
+
+    def _assemble(self, words_np: np.ndarray, totals_np: np.ndarray,
+                  tables: list | None = None) -> list[bytes]:
+        """Host words and totals -> files; ``tables`` are the per-image
+        Huffman tables (None: the fixed tables)."""
+        B, S, cap = words_np.shape
+        headers = ([self._header] * B if tables is None
+                   else [self._file_header(t) for t in tables])
+        return native.assemble_interleaved(
+            words_np.reshape(B * S, cap), totals_np.reshape(-1), headers, S)
+
+    # -- dynamic-table stages ------------------------------------------------
+
+    def _analyze_hist(self, x: torch.Tensor):
+        """Stage 1: [B, H, W*3] u8 -> (packed fields [B*S, nblk, 64] int32,
+        per-image histograms [B, 1024] int32), kernels A and E."""
+        return fused.symbolize_fields(self._coefs(x), x.shape[0], self._mask)
+
+    @staticmethod
+    def _build_tables_batch(h_np: np.ndarray, smooth: bool = False):
+        """Per-image K.2 builds + combined LUTs from [B, 1024] histograms.
+
+        The histogram's group order is that of the LUT index (``sym |
+        is_dc << 8 | is_luma << 9``): chroma AC, chroma DC, luma AC, luma
+        DC; bin 1023 (NULL) is dropped.  ``smooth`` ("dynamic-sampled")
+        adds 1 to every symbol that can occur, so a symbol the sample
+        missed still gets a code.  Returns (tables, luts [B, 1024] int32).
+        """
+        B = h_np.shape[0]
+        hb = h_np.reshape(B, 4, 256)
+        ldc = hb[:, 3].copy()
+        ldc[:, NULL_INDEX & 255] = 0
+        freqs = np.ones((B, 4, 257), np.int64)
+        freqs[:, 0, :256] = ldc
+        freqs[:, 1, :256] = hb[:, 2]  # luma_ac
+        freqs[:, 2, :256] = hb[:, 1]  # chroma_dc
+        freqs[:, 3, :256] = hb[:, 0]  # chroma_ac
+        if smooth:
+            freqs[:, 0, :256] += _DC_POSSIBLE
+            freqs[:, 2, :256] += _DC_POSSIBLE
+            freqs[:, 1, :256] += _AC_POSSIBLE
+            freqs[:, 3, :256] += _AC_POSSIBLE
+        tabs = build_tables_batch(freqs.reshape(B * 4, 257))
+        tables = []
+        luts = np.empty((B, 1024), np.int32)
+        for b in range(B):
+            t = {"luma_dc": tabs[4 * b], "luma_ac": tabs[4 * b + 1],
+                 "chroma_dc": tabs[4 * b + 2], "chroma_ac": tabs[4 * b + 3]}
+            tables.append(t)
+            luts[b] = build_combined_lut(t)
+        return tables, luts
+
+    def _pack_only(self, pf: torch.Tensor, luts: torch.Tensor):
+        """Stage 2: packed fields + per-image LUTs -> (words [B, S, ...],
+        totals [B, S]), kernels F, C and D."""
+        B, S = luts.shape[0], self.n_segs
+        value, nbits, bits = fused.attach_pf(pf, luts)
+        offs, totals = fused.segment_offsets(bits)
+        words = fused.place(value, nbits, offs, self.seg_rows * 128)
+        return words.view(B, S, -1), totals.view(B, S)
 
     # -- helpers -------------------------------------------------------------
+
+    def _coefs(self, x: torch.Tensor) -> torch.Tensor:
+        """Kernel A: [B, H, W*3] u8 -> [B*S, nblk, 64] int16 coefficients."""
+        coef = front.front_dct(x, self._m, self._bias, self._ql, self._qc)
+        return coef.view(x.shape[0] * self.n_segs, self.blocks_per_seg, 64)
+
+    def _file_header(self, tables: dict[str, HuffmanTable]) -> bytes:
+        """SOI .. SOS header of one file with these Huffman tables."""
+        return jfif.headers(
+            self.width, self.height, self._luma_q, self._chroma_q, tables,
+            restart_interval=self._interval, y_sampling=(2, 2)
+        ) + jfif.sos_header_interleaved()
 
     def _check_batch(self, rgbs) -> torch.Tensor:
         """Validate a [B, H, W, 3] or [B, H, W*3] batch -> [B, H, W*3] u8

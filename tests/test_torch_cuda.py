@@ -4,8 +4,8 @@ They skip, with a reason, where no CUDA device is present; on the card
 (``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``; the
 suite's conftest imports jax, which the card machine lacks) each kernel
 must equal its plain twin exactly, and the encoder's bytes must equal the
-CPU path's.  ``chip_smoke.py`` runs the same checks at full size.  No jax
-here."""
+CPU path's, in every Huffman mode.  ``chip_smoke.py`` runs the same
+checks at full size.  No jax here."""
 import numpy as np
 import pytest
 import torch
@@ -55,13 +55,38 @@ def test_kernels_equal_plain_twins(dev, quality):
         _i32(fused.place_plain(fields[0], fields[1], offs[0], sw)))
 
 
-def test_card_bytes_equal_cpu_bytes(dev):
+@pytest.mark.parametrize("mode", ["dynamic", "dynamic-sampled"])
+def test_dynamic_kernels_equal_plain_twins(dev, mode):
+    cfg = EncodeConfig(scan_layout="interleaved", huffman=mode,
+                       restart_interval_mcu_rows=5)
+    enc = FastBatchEncoder(160, 96, cfg, device=dev)
+    imgs = synthetic_batch(np.random.default_rng(35), 2, 160, 96)
+    x = torch.from_numpy(imgs).to(dev).reshape(2, 160, 96 * 3)
+    coef = front.front_dct(x, enc._m, enc._bias, enc._ql,
+                           enc._qc).view(4, -1, 64)
+    pf, hist = fused.symbolize_fields(coef, 2, enc._mask)
+    want_pf, want_hist = fused.symbolize_fields_plain(coef, 2, enc._mask)
+    assert torch.equal(pf, want_pf) and torch.equal(hist, want_hist)
+    _, luts = enc._build_tables_batch(hist.cpu().numpy(),
+                                      smooth=mode == "dynamic-sampled")
+    luts = torch.from_numpy(luts).to(dev)
+    for a, b in zip(fused.attach_pf(pf, luts),
+                    fused.attach_pf_plain(pf, luts)):
+        assert torch.equal(_i32(a), _i32(b))
+
+
+@pytest.mark.parametrize("mode", ["fixed", "dynamic", "dynamic-sampled"])
+def test_card_bytes_equal_cpu_bytes(dev, mode):
     imgs = synthetic_batch(np.random.default_rng(33), 2, 256, 160)
-    cfg = EncodeConfig(scan_layout="interleaved", huffman="fixed",
+    cfg = EncodeConfig(scan_layout="interleaved", huffman=mode,
                        restart_interval_mcu_rows=8)
     reset_launch_counts()
     got = FastBatchEncoder(256, 160, cfg, device=dev).encode_batch(imgs)
-    assert all(n == 1 for n in launch_counts().values())
+    path = (("symbolize_bits",) if mode == "fixed"
+            else ("symbolize_fields", "attach_pf"))
+    assert launch_counts() == {
+        k: int(k in ("front_dct", "segment_offsets", "place") + path)
+        for k in launch_counts()}
     want = FastBatchEncoder(256, 160, cfg, device="cpu").encode_batch(imgs)
     assert got == want
     assert np.all([len(f) > 0 for f in got])

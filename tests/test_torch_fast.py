@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from jpeg_tpu.core.types import EncodeConfig as JaxConfig
 from jpeg_tpu.pipelines.fast import FastBatchEncoder as JaxEncoder
 from jpeg_tpu_torch import EncodeConfig, FastBatchEncoder
 from jpeg_tpu_torch.convert import constants_from_jax
@@ -26,9 +27,9 @@ QUALITIES = [None, 75]
 CASES = [(g, q) for g in GEOMETRIES for q in QUALITIES]
 
 
-def _config(rr, quality):
-    return EncodeConfig(scan_layout="interleaved", huffman="fixed",
-                        quality=quality, restart_interval_mcu_rows=rr)
+def _config(rr, quality, cls=EncodeConfig):
+    return cls(scan_layout="interleaved", huffman="fixed", quality=quality,
+               restart_interval_mcu_rows=rr)
 
 
 @pytest.fixture(scope="module")
@@ -40,7 +41,8 @@ def jax_ref():
         if (geom, quality) not in cache:
             h, w, rr = GEOMETRIES[geom]
             imgs = synthetic_images(21, 2, h, w)
-            enc = JaxEncoder(h, w, _config(rr, quality), interpret=True)
+            enc = JaxEncoder(h, w, _config(rr, quality, JaxConfig),
+                             interpret=True)
             words, totals = enc.step(imgs)
             cache[geom, quality] = (imgs, enc, np.asarray(words),
                                     np.asarray(totals),
@@ -115,7 +117,7 @@ def test_constants_must_match_the_config_quantizers():
 def test_constructor_errors_match_jax(args):
     h, w, cfg, segs = args
     with pytest.raises(ValueError) as want:
-        JaxEncoder(h, w, EncodeConfig(**cfg), segs_per_image=segs,
+        JaxEncoder(h, w, JaxConfig(**cfg), segs_per_image=segs,
                    interpret=True)
     with pytest.raises(ValueError) as got:
         FastBatchEncoder(h, w, EncodeConfig(**cfg), segs_per_image=segs,
@@ -125,8 +127,6 @@ def test_constructor_errors_match_jax(args):
 
 @pytest.mark.parametrize("cfg", [dict(subsampling="422"),
                                  dict(subsampling="444"),
-                                 dict(huffman="dynamic"),
-                                 dict(huffman="dynamic-sampled"),
                                  dict(dtype="float64")])
 def test_unported_settings_name_their_roadmap_item(cfg):
     base = dict(scan_layout="interleaved", huffman="fixed")
@@ -175,4 +175,5 @@ def test_cpu_wrappers_run_the_plain_twins_and_launch_nothing():
     assert torch.equal(words.view(torch.int32), plain.view(torch.int32))
     assert launch_counts() == dict.fromkeys(launch_counts(), 0)
     assert set(launch_counts()) == {"front_dct", "symbolize_bits",
-                                    "segment_offsets", "place"}
+                                    "segment_offsets", "place",
+                                    "symbolize_fields", "attach_pf"}

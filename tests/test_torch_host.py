@@ -1,0 +1,173 @@
+"""The port's own copies of jpeg_tpu's host modules against the originals:
+tables, configuration, Huffman builders, JFIF headers, the native host
+library and the golden decoder.  Every comparison is exact equality."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+from jpeg_tpu import native as jnative
+from jpeg_tpu.bitstream import jfif as jjfif
+from jpeg_tpu.core import tables as JT
+from jpeg_tpu.core.types import EncodeConfig as JaxConfig
+from jpeg_tpu.golden import decoder as jgolden
+from jpeg_tpu.huffman import build as jbuild
+from jpeg_tpu.pipelines.fast import FastBatchEncoder as JaxEncoder
+from jpeg_tpu_torch import EncodeConfig, native
+from jpeg_tpu_torch.bitstream import jfif
+from jpeg_tpu_torch.core import tables as T
+from jpeg_tpu_torch.golden import decoder as golden
+from jpeg_tpu_torch.huffman import build
+
+from test_torch_ops import synthetic_images
+
+
+def _tables_equal(got, want):
+    for f in ("bits", "huffval", "code", "length"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+@pytest.mark.parametrize("quality", [None, 1, 50, 75, 100])
+def test_quant_tables_match(quality):
+    for got, want in zip(T.quant_tables(quality), JT.quant_tables(quality)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def test_dct_basis_and_constants_match():
+    for got, want in zip(T.dct_flat_basis(), JT.dct_flat_basis()):
+        np.testing.assert_array_equal(got, want)
+    for name in ("SCAN_ORDER", "INV_SCAN_ORDER", "LUMA_QUANTIZER",
+                 "CHROMA_QUANTIZER", "RGB_TO_YCBCR", "YCBCR_OFFSET"):
+        np.testing.assert_array_equal(getattr(T, name), getattr(JT, name))
+
+
+def test_fixed_tables_match():
+    got, want = build.fixed_tables(), jbuild.fixed_tables()
+    assert set(got) == set(want)
+    for name in want:
+        _tables_equal(got[name], want[name])
+
+
+def _histograms():
+    """Seeded random histograms plus edge cases: one and two symbols,
+    all equal, and one of powers of two, whose K.2 tree is a chain deeper
+    than 16 bits (so the 16-bit length limiting runs)."""
+    rng = np.random.default_rng(11)
+    freqs = []
+    for _ in range(24):
+        f = np.zeros(257, np.int64)
+        n_active = int(rng.integers(1, 200))
+        idx = rng.choice(256, size=n_active, replace=False)
+        f[idx] = rng.integers(1, 100000, size=n_active)
+        f[256] = 1
+        freqs.append(f)
+    one = np.zeros(257, np.int64)
+    one[[5, 256]] = [1000, 1]
+    two = np.zeros(257, np.int64)
+    two[[3, 200, 256]] = [7, 7, 1]
+    deep = np.zeros(257, np.int64)
+    deep[10:34] = 2 ** np.arange(24)
+    deep[256] = 1
+    return freqs + [one, two, np.ones(257, np.int64), deep]
+
+
+def test_native_builder_matches_jpeg_tpu_and_python():
+    freqs = np.stack(_histograms())
+    deep = build._derive_code_lengths(freqs[-1])
+    assert deep.max() > 16  # the limiter really runs
+    got = build.build_tables_batch(freqs)
+    want = jbuild.build_tables_batch(freqs)
+    assert len(got) == len(want) == len(freqs)
+    for f, g, w in zip(freqs, got, want):
+        _tables_equal(g, w)
+        _tables_equal(g, build.build_table(f))
+        assert g.length.max() <= 16
+
+
+def test_builders_reject_empty_histograms():
+    empty = np.zeros(257, np.int64)
+    empty[256] = 1
+    for fn in (build.build_table, lambda f: build.build_tables_batch(f[None])):
+        with pytest.raises(ValueError, match="empty symbol histogram"):
+            fn(empty)
+
+
+def test_table_from_spec_matches():
+    t = jbuild.build_table(_histograms()[0], allow_native=False)
+    _tables_equal(build.table_from_spec(t.bits, t.huffval),
+                  jbuild.table_from_spec(t.bits, t.huffval))
+
+
+@pytest.mark.parametrize("restart_interval", [0, 17], ids=["no-dri", "dri"])
+@pytest.mark.parametrize("kind", ["fixed", "built"])
+def test_jfif_headers_match(kind, restart_interval):
+    if kind == "fixed":
+        tables, jtables = build.fixed_tables(), jbuild.fixed_tables()
+    else:
+        hists = _histograms()[:4]
+        names = ("luma_dc", "luma_ac", "chroma_dc", "chroma_ac")
+        tables = dict(zip(names, build.build_tables_batch(np.stack(hists))))
+        jtables = dict(zip(names, jbuild.build_tables_batch(np.stack(hists))))
+    lq, cq = T.quant_tables(75)
+    got = jfif.headers(1920, 1088, lq, cq, tables,
+                       restart_interval=restart_interval)
+    want = jjfif.headers(1920, 1088, lq, cq, jtables,
+                         restart_interval=restart_interval)
+    assert got == want
+    assert jfif.sos_header_interleaved() == jjfif.sos_header_interleaved()
+    segs = [b"\x12\x34", b"\xff\x00", b""]
+    assert (jfif.assemble_interleaved(got, segs)
+            == jjfif.assemble_interleaved(want, segs))
+
+
+def test_jfif_dri_error_matches():
+    with pytest.raises(ValueError) as want:
+        jjfif.dri_segment(1 << 16)
+    with pytest.raises(ValueError) as got:
+        jfif.dri_segment(1 << 16)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("n_segs", [1, 4])
+def test_native_assembly_matches(n_segs):
+    rng = np.random.default_rng(5 + n_segs)
+    B = 3
+    words = rng.integers(0, 1 << 32, size=(B * n_segs, 40),
+                         dtype=np.uint64).astype(np.uint32)
+    words[:, ::3] |= 0xFF000000  # exercise the 0xFF00 stuffing
+    totals = rng.integers(1, 1270, size=B * n_segs).astype(np.int32)
+    totals[0] = 1024  # ends on a byte boundary
+    headers = [b"\xff\xd8HDR%d" % i + jfif.sos_header_interleaved()
+               for i in range(B)]
+    got = native.assemble_interleaved(words, totals, headers, n_segs)
+    assert got == jnative.assemble_interleaved(words, totals, headers,
+                                               n_segs)
+    assert native.finish_scans(words, totals) == jnative.finish_scans(
+        words, totals)
+
+
+def test_golden_decoder_matches_on_a_jpeg_tpu_file():
+    imgs = synthetic_images(29, 1, 64, 96)
+    cfg = JaxConfig(scan_layout="interleaved", huffman="fixed",
+                    restart_interval_mcu_rows=2)
+    data = JaxEncoder(64, 96, cfg, interpret=True).encode_batch(imgs)[0]
+    got, want = golden.decode(data), jgolden.decode(data)
+    assert got.shape == (64, 96, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    assert golden.psnr(imgs[0], got) == jgolden.psnr(imgs[0], want)
+    assert golden.psnr(got, got) == float("inf")
+
+
+def test_encode_config_matches():
+    got = {f.name: f.default for f in dataclasses.fields(EncodeConfig)}
+    want = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
+    assert got == want
+    for bad in (dict(quality=0), dict(quality=101), dict(scan_layout="x"),
+                dict(huffman="x"), dict(subsampling="411"),
+                dict(dtype="float16"), dict(engine="x")):
+        with pytest.raises(ValueError) as w:
+            JaxConfig(**bad)
+        with pytest.raises(ValueError) as g:
+            EncodeConfig(**bad)
+        assert str(g.value) == str(w.value)

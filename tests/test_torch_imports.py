@@ -1,4 +1,5 @@
-"""The port never imports jax, and builds nothing at import time."""
+"""The port imports neither jax nor anything of jpeg_tpu, and builds
+nothing at import time."""
 import os
 import pathlib
 import subprocess
@@ -21,21 +22,44 @@ def _run(code: str, env=None) -> str:
                                     "jpeg_tpu_torch.pipelines.fast",
                                     "jpeg_tpu_torch.convert",
                                     "chip_smoke"])
-def test_import_leaves_jax_out(module):
-    out = _run(f"import sys, {module}; print('jax' in sys.modules, "
-               f"any(m.startswith('jax.') for m in sys.modules))")
+def test_import_leaves_jax_and_jpeg_tpu_out(module):
+    out = _run(f"import sys, {module}; print(*(any(m == p or "
+               f"m.startswith(p + '.') for m in sys.modules) "
+               f"for p in ('jax', 'jpeg_tpu')))")
     assert out.split() == ["False", "False"]
 
 
-def test_no_file_of_the_port_imports_jax():
+def _imports_of(line: str) -> list[str]:
+    """Top-level module names a line imports (``import a.b, c`` or
+    ``from a.b import c``; relative imports name nothing)."""
+    words = line.split()
+    if words[:1] == ["import"]:
+        return [part.split()[0].split(".")[0]
+                for part in line[len("import"):].split(",") if part.strip()]
+    if words[:1] == ["from"] and len(words) > 1:
+        return [words[1].split(".")[0]] if words[1][0] != "." else []
+    return []
+
+
+@pytest.mark.parametrize("line,names", [
+    ("import jpeg_tpu", ["jpeg_tpu"]),
+    ("from jpeg_tpu.native import x", ["jpeg_tpu"]),
+    ("from jpeg_tpu import native", ["jpeg_tpu"]),
+    ("import jax.numpy as jnp, os", ["jax", "os"]),
+    ("from jpeg_tpu_torch import native", ["jpeg_tpu_torch"]),
+    ("from .core import tables", []),
+])
+def test_import_scan_reads_import_lines(line, names):
+    assert _imports_of(line) == names
+
+
+def test_no_file_of_the_port_imports_jax_or_jpeg_tpu():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 10
+    assert len(files) >= 20
     for f in files:
         for line in f.read_text().splitlines():
-            words = line.split()
-            assert words[:2] not in (["import", "jax"], ["from", "jax"]), f
-            assert not (words[:1] == ["from"] and words[1:2]
-                        and words[1].startswith("jax.")), f
+            bad = {"jax", "jpeg_tpu"} & set(_imports_of(line.strip()))
+            assert not bad, f"{f}: {line.strip()}"
 
 
 def test_kernel_modules_import_without_nvcc(tmp_path):
@@ -65,3 +89,21 @@ def test_every_kernel_has_a_source_and_an_entry_point():
         assert f'extern "C" int {fn}(' in src
         assert "return (int)cudaGetLastError();" in src
         assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
+
+
+def test_kernel_hash_covers_included_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh must rebuild every kernel that includes it."""
+    from jpeg_tpu_torch import _build
+    assert [p.split("/")[-1] for p in _build.sources("symbolize_fields")] \
+        == ["symbolize_fields.cu", "block_slots.cuh"]
+    for name in _build.SIGNATURES:
+        (tmp_path / f"{name}.cu").write_bytes(
+            (PKG / "csrc" / f"{name}.cu").read_bytes())
+    header = (PKG / "csrc" / "block_slots.cuh").read_bytes()
+    (tmp_path / "block_slots.cuh").write_bytes(header)
+    monkeypatch.setattr(_build, "SRC_DIR", str(tmp_path))
+    before = {n: _build._target(n)[1] for n in _build.SIGNATURES}
+    (tmp_path / "block_slots.cuh").write_bytes(header + b"// edited\n")
+    after = {n: _build._target(n)[1] for n in _build.SIGNATURES}
+    changed = {n for n in before if before[n] != after[n]}
+    assert changed == {"symbolize_bits", "symbolize_fields"}

@@ -7,7 +7,10 @@ kernel it replaces, run in interpret mode on the CPU:
   ``_dct_attach_kernel`` (K6) -> ``_place_acc_kernel`` + scatter-add (K4),
   and against its resident route ``_dct_place_kernel`` (K6r);
 * C + D against ``_segment_place``'s ``_place_resident_kernel`` (K4r) and
-  ``_place_acc_kernel`` (K4), fed with the port's own fields.
+  ``_place_acc_kernel`` (K4), fed with the port's own fields;
+* dynamic tables: A + E against ``front_index(emit_fields=True)`` (K2),
+  ``dct_index_segments`` (K9) and ``dct_symbolize_segments`` (K10); F + C
+  + D against ``attach_pack_pf`` (K3) and ``attach_pack_grouped`` (K11).
 
 Every comparison is exact equality (integers, or f32 small integers)."""
 import numpy as np
@@ -18,10 +21,12 @@ import jax.numpy as jnp
 
 from jpeg_tpu.kernels import front as jfront
 from jpeg_tpu.kernels import fused as jfused
-from jpeg_tpu_torch.kernels import fused, front
+from jpeg_tpu_torch.kernels import (fused, front, launch_counts,
+                                    reset_launch_counts)
 from jpeg_tpu_torch.ops import color
 from jpeg_tpu_torch.ops.pack import rows_per_segment
-from jpeg_tpu_torch.pipelines.fast import host_constants
+from jpeg_tpu_torch.ops.sample import sample_mask, stage1_columns
+from jpeg_tpu_torch.pipelines.fast import FastBatchEncoder, host_constants
 
 from test_torch_ops import synthetic_images
 
@@ -185,3 +190,129 @@ def test_wrappers_reject_mixed_devices(const_device):
     c = {k: v.to(const_device) for k, v in _consts(None).items()}
     with pytest.raises(ValueError, match="on the CPU or all on CUDA"):
         front.front_dct(x, c["m"], c["bias"], c["ql"], c["qc"])
+
+
+# -- dynamic tables: kernels E and F -----------------------------------------
+
+
+def _stage1(imgs, n_segs, quality, mask=None):
+    """The port's A + E on [B, H, W, 3] u8: (coef, pf, hist, luts)."""
+    B, h, w, _ = imgs.shape
+    c = _consts(quality)
+    x = torch.from_numpy(imgs.reshape(B, h, w * 3))
+    coef = front.front_dct(x, c["m"], c["bias"], c["ql"], c["qc"])
+    coef = coef.view(B * n_segs, -1, 64)
+    pf, hist = fused.symbolize_fields(coef, B, mask)
+    _, luts = FastBatchEncoder._build_tables_batch(hist.numpy())
+    return coef, pf, hist, torch.from_numpy(luts)
+
+
+def _place_pf(pf, luts, seg_rows):
+    """The port's F + C + D: words, totals."""
+    value, nbits, bits = fused.attach_pf(pf, luts)
+    offs, totals = fused.segment_offsets(bits)
+    return fused.place(value, nbits, offs, seg_rows * 128), totals
+
+
+def _transposed(pf):
+    """[S, nblk, 64] -> the TPU layout [64, S * nblk] int32."""
+    return jnp.asarray(pf.numpy().reshape(-1, 64).T)
+
+
+@pytest.mark.parametrize("h,w,n_segs,quality", [
+    (128, 128, 1, None),   # one slab, one segment
+    (160, 96, 1, 75),      # padded slab tail, phantom block columns
+    (256, 128, 2, None),   # two slab-aligned segments
+])
+def test_fields_match_front_index(h, w, n_segs, quality):
+    """A + E against K2 ``front_index(emit_fields=True)``."""
+    imgs = synthetic_images(41, 2, h, w)
+    _, pf, _, _ = _stage1(imgs, n_segs, quality)
+    h_pad = -(-h // 128) * 128
+    xp = np.pad(imgs.reshape(2, h, w * 3), ((0, 0), (0, h_pad - h), (0, 0)))
+    _, m, bias, ql, qc = _jax_consts(_consts(quality))
+    jpf = jfront.front_index(jnp.asarray(xp), m, bias, ql, qc, w // 16,
+                             h_pad // 16, "420", interpret=True,
+                             real_height=h, n_segs=n_segs, emit_fields=True)
+    jpf = np.asarray(jpf).reshape(64, 2, -1).transpose(1, 2, 0)
+    cols = stage1_columns(h, w, n_segs)
+    np.testing.assert_array_equal(pf.numpy().reshape(2, -1, 64),
+                                  jpf[:, cols])
+
+
+@pytest.mark.parametrize("kernel", ["K9", "K10"])
+def test_fields_match_dct_segments(kernel):
+    """A + E against K9 ``dct_index_segments`` (index only) and K10
+    ``dct_symbolize_segments`` (idx, extra, extra_n), whose segments pad
+    to 128 blocks (180 real blocks here)."""
+    imgs = synthetic_images(43, 2, 160, 96)
+    _, pf, _, _ = _stage1(imgs, 2, 75)
+    S, nblk, _ = pf.shape
+    y, cb, cr = color.rgb_to_ycbcr_420(torch.from_numpy(imgs))
+    px = jnp.asarray(color.mcu_blocks(y, cb, cr).numpy().reshape(S, nblk, 64))
+    _, m, bias, ql, qc = _jax_consts(_consts(75))
+    if kernel == "K9":
+        want = (jfused.dct_index_segments(m, bias, ql, qc, px, S, 6, 4,
+                                          interpret=True),)
+        got = (pf & 1023,)
+    else:
+        want = jfused.dct_symbolize_segments(m, bias, ql, qc, px, S, 6, 4,
+                                             interpret=True)
+        got = fused.unpack_fields(pf)
+    for g, w_t in zip(got, want):
+        w_t = np.asarray(w_t).reshape(64, S, -1)[:, :, :nblk]
+        np.testing.assert_array_equal(g.numpy(), w_t.transpose(1, 2, 0))
+
+
+def test_attach_place_matches_attach_pack_pf():
+    """F + C + D against K3 ``attach_pack_pf`` (``_pf_place_kernel``) on
+    the port's own fields and per-image LUTs."""
+    imgs = synthetic_images(45, 2, 128, 256)
+    _, pf, _, luts = _stage1(imgs, 2, None)
+    S, nblk, _ = pf.shape
+    seg_rows = rows_per_segment(nblk * 64)
+    words, totals = _place_pf(pf, luts, seg_rows)
+    jw, jt = jfused.attach_pack_pf(jnp.asarray(luts.numpy()),
+                                   _transposed(pf), S, S // 2, seg_rows,
+                                   interpret=True)
+    np.testing.assert_array_equal(totals.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(words.numpy(), np.asarray(jw))
+
+
+def test_attach_place_matches_attach_pack_grouped():
+    """F + C + D against K11 ``attach_pack_grouped`` fed with K10's
+    fields (segments padded to 128 blocks, the pads NULL)."""
+    imgs = synthetic_images(47, 2, 160, 96)
+    _, pf, _, luts = _stage1(imgs, 2, None)
+    S, nblk, _ = pf.shape
+    seg_rows = rows_per_segment(nblk * 64)
+    words, totals = _place_pf(pf, luts, seg_rows)
+    y, cb, cr = color.rgb_to_ycbcr_420(torch.from_numpy(imgs))
+    px = jnp.asarray(color.mcu_blocks(y, cb, cr).numpy().reshape(S, nblk, 64))
+    _, m, bias, ql, qc = _jax_consts(_consts(None))
+    idx, extra, extra_n = jfused.dct_symbolize_segments(
+        m, bias, ql, qc, px, S, 6, 4, interpret=True)
+    jw, jt = jfused.attach_pack_grouped(jnp.asarray(luts.numpy()), idx,
+                                        extra, extra_n, S, S // 2, seg_rows,
+                                        interpret=True)
+    np.testing.assert_array_equal(totals.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(words.numpy(), np.asarray(jw))
+
+
+def test_dynamic_cpu_wrappers_run_the_plain_twins_and_launch_nothing():
+    imgs = synthetic_images(49, 2, 160, 96)
+    mask = torch.from_numpy(sample_mask(160, 96, 2))
+    reset_launch_counts()
+    coef, pf, hist, luts = _stage1(imgs, 2, None, mask)
+    want_pf, want_hist = fused.symbolize_fields_plain(coef, 2, mask)
+    assert torch.equal(pf, want_pf) and torch.equal(hist, want_hist)
+    # the mask keeps a fifth of the blocks' slots out of the histogram
+    full = fused.symbolize_fields(coef, 2)[1]
+    assert 0 < int(hist.sum()) < int(full.sum())
+    for a, b in zip(fused.attach_pf(pf, luts), fused.attach_pf_plain(pf,
+                                                                     luts)):
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.uint32
+                           else a,
+                           b.view(torch.int32) if b.dtype == torch.uint32
+                           else b)
+    assert launch_counts() == dict.fromkeys(launch_counts(), 0)
