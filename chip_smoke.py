@@ -10,22 +10,35 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    the port's native host library (g++);
 2. every kernel against its plain PyTorch twin on the card, at the shapes
    of a 16x640x640 batch (E with and without the dynamic-sampled mask, F
-   with each mode's LUTs); integer outputs must be exactly equal;
-3. ``FastBatchEncoder.encode_batch`` on 16x640x640, 4x1920x1280 and
-   2x1920x1088 with 4 restart segments, once per Huffman mode ("fixed",
-   "dynamic", "dynamic-sampled"): the launch counts are reset just before
-   each mode's run and read just after; the JPEG bytes must equal those
-   of the same encoder on the CPU (the plain twins; the dynamic modes
-   compare the first 4 images of a batch, since each image's tables are
-   its own), image 0 of 16x640x640 must decode with the port's
+   with each mode's LUTs), and in the layouts of the 3-scan path: A's
+   3-scan order and its gray mode (1920x1280), B and E on the Y and the
+   Cb + Cr scans (E adding both into one histogram), F with per-image
+   LUTs, C and D on the 8 Y restart segments of 1920x1088 r17; integer
+   outputs must be exactly equal;
+3. the main paths, each with the launch counts reset just before its run
+   and read just after, every kernel of the path launched:
+   a. ``FastBatchEncoder.encode_batch`` on 16x640x640, 4x1920x1280 and
+      2x1920x1088 with 4 restart segments, once per Huffman mode ("fixed",
+      "dynamic", "dynamic-sampled");
+   b. ``JpegEncoder`` in the 3-scan layout: ``encode`` at 640x640,
+      1920x1280 and 1920x1088 with restarts every 17 block rows, and
+      ``encode_batch`` of 16x640x640, per Huffman mode; ``encode_region``
+      of a 640x640 window of a 1920x1280 frame; ``encode_any`` at
+      1919x1079; ``encode_gray`` at 1920x1280 (fixed and dynamic).
+   The JPEG bytes must equal those of the same call on the CPU (the plain
+   twins; a batch compares its first 4 images, since each image's tables
+   are its own), the first file of each run must decode with the port's
    ``golden.decoder`` at PSNR > 28 dB, the dynamic files' DHT segments
    must differ from the fixed tables', and the restart files must carry
-   DRI and RSTn markers;
+   DRI and RSTn markers (3-scan: a DRI per scan);
 4. timings: the median of ``--runs`` warm runs of the device step (fixed)
    or ``dynamic_pack`` (dynamic) and of ``encode_batch`` per geometry and
-   mode, the dynamic path's host split, and each kernel next to its plain
-   twin, its bound and, where one PyTorch call computes the same
-   function, that call.
+   mode, the dynamic path's host split, ``JpegEncoder.encode`` per mode
+   and geometry with its device time and idle share, the K.2 build of one
+   image's tables, and each kernel next to its plain twin, its bound and,
+   where one PyTorch call computes the same function, that call (plus F,
+   and C + D, at the shapes of a 1920x1280 3-scan Y scan: the ports of
+   K14 and K15).
 
 The line before the last is the ``kernels`` JSON record; the last line is
 the JSON verdict.  Inputs are synthetic images (smooth gradients plus hard
@@ -45,16 +58,26 @@ import time
 import numpy as np
 import torch
 
-from jpeg_tpu_torch import EncodeConfig, FastBatchEncoder, _build, native
+from jpeg_tpu_torch import (Area, EncodeConfig, FastBatchEncoder, JpegEncoder,
+                            _build, encode_gray, native)
 from jpeg_tpu_torch.golden import decoder as golden
 from jpeg_tpu_torch.kernels import (fused, front, launch_counts,
                                     reset_launch_counts)
+from jpeg_tpu_torch.kernels import pack as kpack
+from jpeg_tpu_torch.ops.color import SCAN_CHROMA, SCAN_Y
 from jpeg_tpu_torch.ops.dct import set_exact_matmul
 
 # (batch, height, width, restart_interval_mcu_rows)
 GEOMETRIES = [(16, 640, 640, 0), (4, 1280, 1920, 0), (2, 1088, 1920, 17)]
 MODES = ["fixed", "dynamic", "dynamic-sampled"]
 CPU_IMAGES_DYNAMIC = 4  # images of a batch the dynamic modes check on the CPU
+# the synthetic frames give 32-39 dB at full size and the unscaled tables
+MIN_PSNR_DB = 28.0
+# JpegEncoder.encode in the 3-scan layout: (height, width, restart rows)
+SCAN_GEOMETRIES = [(640, 640, 0), (1280, 1920, 0), (1088, 1920, 17)]
+FIXED_PATH = ("front_dct", "symbolize_bits", "segment_offsets", "place")
+DYNAMIC_PATH = ("front_dct", "symbolize_fields", "attach_pf",
+                "segment_offsets", "place")
 
 # kernel -> (source, the TPU kernels it replaces: file:line of pallas_call)
 KERNEL_INFO = {
@@ -64,20 +87,23 @@ KERNEL_INFO = {
                   "fused.py:576 (K6)"),
     "symbolize_bits": ("jpeg_tpu_torch/csrc/symbolize_bits.cu",
                        "jpeg_tpu/kernels/fused.py:576 (K6); symbolize + "
-                       "attach of front.py:823 (K1) and fused.py:509 (K6r)"),
+                       "attach of front.py:823 (K1) and fused.py:509 (K6r); "
+                       "lut.py:120 (K14) on the fixed 3-scan path"),
     "segment_offsets": ("jpeg_tpu_torch/csrc/segment_offsets.cu",
                         "jpeg_tpu/kernels/fused.py:1388 (K4), fused.py:1358 "
-                        "(K4r); offsets of front.py:823 (K1) and "
-                        "fused.py:642 (K3)"),
+                        "(K4r); offsets of front.py:823 (K1), fused.py:642 "
+                        "(K3) and pack.py:225 (K15)"),
     "place": ("jpeg_tpu_torch/csrc/place.cu",
-              "jpeg_tpu/kernels/fused.py:1388 (K4), fused.py:1358 (K4r); "
-              "place of front.py:823 (K1) and fused.py:642 (K3)"),
+              "jpeg_tpu/kernels/fused.py:1388 (K4), fused.py:1358 (K4r), "
+              "pack.py:225 (K15) + its row scatter-add; place of "
+              "front.py:823 (K1) and fused.py:642 (K3)"),
     "symbolize_fields": ("jpeg_tpu_torch/csrc/symbolize_fields.cu",
                          "jpeg_tpu/kernels/front.py:916 (K2, after its "
                          "front), fused.py:800 (K9), fused.py:829 (K10)"),
     "attach_pf": ("jpeg_tpu_torch/csrc/attach_pf.cu",
                   "jpeg_tpu/kernels/fused.py:642 (K3, before its place), "
-                  "fused.py:918 (K11)"),
+                  "fused.py:918 (K11), lut.py:120 (K14), lut.py:155 "
+                  "(K18c)"),
 }
 
 # NVIDIA's H100 SXM data sheet: HBM3 rate, FP32 rate outside the tensor
@@ -235,6 +261,112 @@ def dynamic_split(e: FastBatchEncoder, xd: torch.Tensor,
     return {k: statistics.median(v) for k, v in parts.items()}
 
 
+def path_of(cfg: EncodeConfig) -> tuple[str, ...]:
+    return FIXED_PATH if cfg.huffman == "fixed" else DYNAMIC_PATH
+
+
+def jpeg_cases(rng: np.random.Generator, scale: int = 1) -> list[dict]:
+    """The ``JpegEncoder`` / ``encode_gray`` runs of phase 3b, at 1/scale of
+    the full sizes (sides stay multiples of 16, the any-size case off them).
+
+    Each case: ``label``; ``kernels`` its path must launch; ``call(dev)``
+    -> the files of one run on ``dev``; ``ref()`` -> the files of the same
+    call on the CPU (a batch: its first ``CPU_IMAGES_DYNAMIC`` images);
+    ``original``: the pixels file 0 must decode to; ``restarts``: (DRI
+    markers, RSTn markers) per file, or None.
+    """
+    def s(n):
+        return n // scale
+    cases = []
+    for h, w, r in SCAN_GEOMETRIES:
+        img = synthetic_batch(rng, 1, s(h), s(w))[0]
+        rows = r  # 1088 / scale stays a multiple of 17 block rows
+        for mode in MODES:
+            cfg = EncodeConfig(huffman=mode, restart_interval_mcu_rows=rows)
+            restarts = None
+            if rows:
+                y_segs, c_segs = s(h) // 8 // rows, s(h) // 16 // rows
+                restarts = ((y_segs > 1) + 2 * (c_segs > 1),
+                            (y_segs - 1) + 2 * (c_segs - 1))
+            call = (lambda dev, cfg=cfg, img=img:
+                    [JpegEncoder(cfg, device=dev).encode(img)])
+            cases.append(dict(
+                label=f"encode 3scan {mode} {s(w)}x{s(h)} restart_rows={rows}",
+                kernels=path_of(cfg), original=img, restarts=restarts,
+                call=call, ref=lambda call=call: call("cpu")))
+    batch = synthetic_batch(rng, 16, s(640), s(640))
+    for mode in MODES:
+        cfg = EncodeConfig(huffman=mode)
+        cases.append(dict(
+            label=f"encode_batch 3scan {mode} 16x{s(640)}x{s(640)}",
+            kernels=path_of(cfg), original=batch[0], restarts=None,
+            call=lambda dev, cfg=cfg: JpegEncoder(
+                cfg, device=dev).encode_batch(batch),
+            ref=lambda cfg=cfg: JpegEncoder(cfg, device="cpu").encode_batch(
+                batch[:CPU_IMAGES_DYNAMIC])))
+    frame = synthetic_batch(rng, 1, s(1280), s(1920))[0]
+    area = Area(s(640), s(320), s(640), s(640))
+    call = lambda dev: [JpegEncoder(device=dev).encode_region(frame, area)]
+    cases.append(dict(
+        label=f"encode_region 3scan dynamic {area} of {s(1920)}x{s(1280)}",
+        kernels=DYNAMIC_PATH, restarts=None,
+        original=frame[area.y:area.y + area.h, area.x:area.x + area.w],
+        call=call, ref=lambda call=call: call("cpu")))
+    odd = frame[:s(1080) - 1, :s(1920) - 1]
+    call = lambda dev: [JpegEncoder(device=dev).encode_any(odd)]
+    cases.append(dict(
+        label=f"encode_any dynamic {odd.shape[1]}x{odd.shape[0]} "
+              f"(padded, interleaved)",
+        kernels=DYNAMIC_PATH, original=odd, restarts=None, call=call,
+        ref=lambda call=call: call("cpu")))
+    plane = np.ascontiguousarray(frame[..., 1])
+    for mode in ("fixed", "dynamic"):
+        cfg = EncodeConfig(huffman=mode)
+        call = (lambda dev, cfg=cfg:
+                [encode_gray(plane, cfg, device=dev)])
+        cases.append(dict(
+            label=f"encode_gray {mode} {s(1920)}x{s(1280)}",
+            kernels=path_of(cfg), original=plane, restarts=None, call=call,
+            ref=lambda call=call: call("cpu")))
+    return cases
+
+
+def check_jpeg_case(case: dict, files: list[bytes], ref: list[bytes],
+                    fixed_dht: list[bytes]) -> str:
+    """Hold one phase-3b run against the CPU's files and the decoder;
+    returns a summary line."""
+    n = len(ref)
+    same = sum(f == g for f, g in zip(files, ref))
+    if same != n:
+        raise AssertionError(f"{case['label']}: card and CPU bytes differ "
+                             f"({same}/{n} equal)")
+    if "fixed" not in case["label"] and any(
+            dht_segments(f) == fixed_dht for f in files):
+        raise AssertionError(f"{case['label']}: a file carries the fixed "
+                             f"tables")
+    if case["restarts"] is not None:
+        want = case["restarts"]
+        for f in files:
+            got = (f.count(b"\xff\xdd\x00\x04"),
+                   sum(f.count(bytes([0xFF, 0xD0 + i])) for i in range(8)))
+            if got != want:
+                raise AssertionError(f"{case['label']}: (DRI, RSTn) markers "
+                                     f"{got}, want {want}")
+    dec = golden.decode(files[0])
+    if dec.shape != case["original"].shape:
+        raise AssertionError(f"{case['label']}: decoded shape {dec.shape} "
+                             f"!= {case['original'].shape}")
+    quality_db = golden.psnr(case["original"], dec)
+    if not quality_db > MIN_PSNR_DB:
+        raise AssertionError(f"{case['label']}: PSNR {quality_db:.2f} dB "
+                             f"<= {MIN_PSNR_DB} dB")
+    markers = (f"; (DRI, RSTn) per file {case['restarts']}"
+               if case["restarts"] else "")
+    return (f"{case['label']}: {same}/{n} files byte-identical to the CPU "
+            f"plain path, {sum(map(len, files))} bytes, golden decode of "
+            f"file 0 PSNR {quality_db:.2f} dB{markers}")
+
+
 def device_profile(fn, runs: int) -> tuple[dict[str, float], float]:
     """torch.profiler over ``runs`` warm calls of ``fn``: (device µs per
     call by kernel or copy name, the device's idle share of the wall
@@ -265,6 +397,55 @@ def device_profile(fn, runs: int) -> tuple[dict[str, float], float]:
         per_call[name] = per_call.get(name, 0.0) + us / runs
     busy = sum(per_call.values()) * runs
     return per_call, 1.0 - busy / wall_us
+
+
+def scan_kernel_times(x: torch.Tensor, consts, lut: torch.Tensor,
+                      card: str, runs: int) -> None:
+    """The ports of K14 (F with one LUT: ``kernels.lut.attach``'s kernel)
+    and K15 (C + D: ``kernels.pack.pack_segments``) at the shapes of the Y
+    scan of one 3-scan ``encode`` of ``x`` ([1, H, W*3]): each held
+    exactly against its plain twin, then timed in turns next to it, with
+    its bound."""
+    n = x.shape[1] * x.shape[2] // 3 // 64  # Y blocks
+    cy = front.front_dct(x, *consts, order="scan")[:n].view(1, n, 64)
+    pf, _ = fused.symbolize_fields(cy, 1, layout=SCAN_Y)
+    lut1 = lut[None].contiguous()
+    value, nbits, bits = fused.attach_pf(pf, lut1)
+    seg_rows = kpack.rows_per_segment(n * 64)
+
+    def pack_plain():
+        offs, totals = fused.segment_offsets_plain(bits)
+        return (fused.place_plain(value, nbits, offs, seg_rows * 128),
+                totals)
+    slots = n * 64
+    cases = {
+        "K14 (F, one LUT)": (
+            lambda: fused.attach_pf(pf, lut1),
+            lambda: fused.attach_pf_plain(pf, lut1),
+            slots * 4 + 4096 + slots * 5 + n * 4),
+        "K15 (C + D)": (
+            lambda: kpack.pack_segments(value, nbits, 1, seg_rows, bits),
+            pack_plain, slots * 5 + n * 4 + seg_rows * 128 * 4 + 4),
+    }
+    for label, (kernel, plain, nbytes) in cases.items():
+        err = max_abs_err(kernel(), plain())
+        if err:
+            raise AssertionError(f"{label} disagrees with its plain twin: "
+                                 f"max_abs_err {err}")
+        p0, k0, k1, p1 = (cuda_ms(f, runs)
+                          for f in (plain, kernel, kernel, plain))
+        # one call's launches cost the host more than the card's work, so
+        # the events above time the wrapper; the profiler gives the card's
+        per_call, _ = device_profile(kernel, runs)
+        print(f"timing {label} at the 3-scan Y scan [1, {n}, 64] of "
+              f"{x.shape[2] // 3}x{x.shape[1]} on [{card}]: "
+              f"{(k0 + k1) / 2:.4f} ms ({k0:.4f}, {k1:.4f}), plain twin "
+              f"{(p0 + p1) / 2:.4f} ms ({p0:.4f}, {p1:.4f}), bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms (bytes); "
+              f"max_abs_err {err} (tolerance: exact); device µs per call "
+              f"(torch.profiler): " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in sorted(per_call.items(),
+                                                    key=lambda kv: -kv[1])))
 
 
 def main() -> int:
@@ -330,15 +511,72 @@ def main() -> int:
         "attach_pf": (lambda: fused.attach_pf(pf, luts["dynamic"]),
                       lambda: fused.attach_pf_plain(pf, luts["dynamic"])),
     }
-    # the other mode of E and F, checked but not timed
+    # the other modes and layouts of the kernels, checked but not timed;
+    # their inputs come from a second generator, so the main path's images
+    # stay those of earlier runs
+    rng2 = np.random.default_rng(args.seed + 1)
+    coef_s = front.front_dct_plain(x, *consts, order="scan")
+    n_y = B * 4 * (H // 16) * (W // 16)
+    cy = coef_s[:n_y].view(B, n_y // B, 64)         # one Y scan per image
+    cc = coef_s[n_y:].view(2 * B, n_y // B // 4, 64)  # its Cb, its Cr scan
+
+    def scan_fields(symbolize):
+        """E on the Y scans, then on the Cb + Cr scans into the same
+        histogram rows: (pf_y, pf_c, hist)."""
+        pf_y, hist = symbolize(cy, B, layout=SCAN_Y)
+        pf_c, hist = symbolize(cc, B, layout=SCAN_CHROMA, hist=hist)
+        return pf_y, pf_c, hist
+
+    pf_c, hist3 = scan_fields(fused.symbolize_fields_plain)[1:]
+    luts3 = torch.from_numpy(FastBatchEncoder._build_tables_batch(
+        hist3.cpu().numpy())[1]).to(dev)
+    plane = torch.from_numpy(np.ascontiguousarray(
+        synthetic_batch(rng2, 1, 1280, 1920)[..., 1])).to(dev)
+    # the 8 Y restart segments of a 1920x1088 image, restarts every 17 rows
+    x_r = torch.from_numpy(synthetic_batch(rng2, 1, 1088, 1920)).to(dev)
+    cy_r = front.front_dct_plain(x_r.reshape(1, 1088, 1920 * 3), *consts,
+                                 order="scan")[:136 * 240].view(8, 4080, 64)
+    fields_r = fused.symbolize_bits_plain(cy_r, enc._lut, SCAN_Y)
+    offs_r = fused.segment_offsets_plain(fields_r[2])
+    words_r = kpack.rows_per_segment(4080 * 64) * 128
     more_checks = {
-        "symbolize_fields": (
-            "mask on", lambda: fused.symbolize_fields(coef, B, mask),
-            lambda: fused.symbolize_fields_plain(coef, B, mask)),
-        "attach_pf": (
-            "dynamic-sampled LUTs",
-            lambda: fused.attach_pf(pf, luts["dynamic-sampled"]),
-            lambda: fused.attach_pf_plain(pf, luts["dynamic-sampled"])),
+        "front_dct": [
+            ("3-scan order", lambda: front.front_dct(x, *consts,
+                                                     order="scan"),
+             lambda: front.front_dct_plain(x, *consts, order="scan")),
+            ("gray, 1x1280x1920", lambda: front.front_dct_gray(
+                plane, *consts[:3]),
+             lambda: front.front_dct_gray_plain(plane, *consts[:3]))],
+        "symbolize_bits": [
+            (f"3-scan Y, {tuple(cy.shape)}",
+             lambda: fused.symbolize_bits(cy, enc._lut, SCAN_Y),
+             lambda: fused.symbolize_bits_plain(cy, enc._lut, SCAN_Y)),
+            (f"3-scan Cb + Cr, {tuple(cc.shape)}",
+             lambda: fused.symbolize_bits(cc, enc._lut, SCAN_CHROMA),
+             lambda: fused.symbolize_bits_plain(cc, enc._lut, SCAN_CHROMA))],
+        "symbolize_fields": [
+            ("mask on", lambda: fused.symbolize_fields(coef, B, mask),
+             lambda: fused.symbolize_fields_plain(coef, B, mask)),
+            ("3-scan Y, then Cb + Cr into the same histogram rows",
+             lambda: scan_fields(fused.symbolize_fields),
+             lambda: scan_fields(fused.symbolize_fields_plain))],
+        "attach_pf": [
+            ("dynamic-sampled LUTs",
+             lambda: fused.attach_pf(pf, luts["dynamic-sampled"]),
+             lambda: fused.attach_pf_plain(pf, luts["dynamic-sampled"])),
+            ("3-scan Cb + Cr, per-image LUTs",
+             lambda: fused.attach_pf(pf_c, luts3),
+             lambda: fused.attach_pf_plain(pf_c, luts3))],
+        "segment_offsets": [
+            ("3-scan Y, 8 restart segments of 1920x1088",
+             lambda: fused.segment_offsets(fields_r[2]),
+             lambda: fused.segment_offsets_plain(fields_r[2]))],
+        "place": [
+            ("3-scan Y, 8 restart segments of 1920x1088",
+             lambda: fused.place(fields_r[0], fields_r[1], offs_r[0],
+                                 words_r),
+             lambda: fused.place_plain(fields_r[0], fields_r[1], offs_r[0],
+                                       words_r))],
     }
     # one PyTorch call computing the same function, where there is one:
     # C's offsets are a cumsum; E's histogram is one bincount (the image
@@ -352,9 +590,7 @@ def main() -> int:
     }
     errs = {}
     for name, (kernel, plain) in calls.items():
-        checks = [("", kernel, plain)]
-        if name in more_checks:
-            checks.append(more_checks[name])
+        checks = [("", kernel, plain)] + more_checks.get(name, [])
         errs[name] = 0
         for label, k_fn, p_fn in checks:
             got, want = k_fn(), p_fn()
@@ -374,12 +610,8 @@ def main() -> int:
     batches = [synthetic_batch(rng, b, h, w) for b, h, w, _ in GEOMETRIES]
     encoders = {mode: [FastBatchEncoder(h, w, config(mode, r), device=dev)
                        for _, h, w, r in GEOMETRIES] for mode in MODES}
-    dynamic_path = ("front_dct", "symbolize_fields", "attach_pf",
-                    "segment_offsets", "place")
-    path_kernels = {"fixed": ("front_dct", "symbolize_bits",
-                              "segment_offsets", "place"),
-                    "dynamic": dynamic_path,
-                    "dynamic-sampled": dynamic_path}
+    path_kernels = {"fixed": FIXED_PATH, "dynamic": DYNAMIC_PATH,
+                    "dynamic-sampled": DYNAMIC_PATH}
     launches = dict.fromkeys(calls, 0)
     fixed_dht = None
     for mode in MODES:
@@ -428,9 +660,24 @@ def main() -> int:
         quality_db = golden.psnr(img0, dec)
         print(f"{mode}: golden decode of image 0 ({H}x{W}): PSNR "
               f"{quality_db:.2f} dB")
-        # these synthetic images give about 32 dB at the unscaled T.81 tables
-        if not quality_db > 28.0:
-            raise AssertionError(f"PSNR {quality_db:.2f} dB <= 28 dB")
+        if not quality_db > MIN_PSNR_DB:
+            raise AssertionError(f"PSNR {quality_db:.2f} dB <= "
+                                 f"{MIN_PSNR_DB} dB")
+
+    # -- phase 3b: JpegEncoder and encode_gray, each call its own path ------
+    for case in jpeg_cases(rng2):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        files = case["call"](dev)
+        counts = launch_counts()
+        print(f"main path {case['label']}: launches {json.dumps(counts)}")
+        for name in case["kernels"]:
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the "
+                                     f"path {case['label']}")
+        for name, n in counts.items():
+            launches[name] += n
+        print("  " + check_jpeg_case(case, files, case["ref"](), fixed_dht))
 
     # -- phase 4: timings ----------------------------------------------------
     for mode in MODES:
@@ -463,6 +710,38 @@ def main() -> int:
                       per_call.items(), key=lambda kv: -kv[1])) +
                   f"; total {sum(per_call.values()):.2f}; device idle "
                   f"share {idle:.4f}")
+    # JpegEncoder in the 3-scan layout: encode of one image per geometry,
+    # and encode_batch of the first geometry's batch
+    runs_3scan = [(1, h, w, r, "encode") for h, w, r in SCAN_GEOMETRIES]
+    runs_3scan.append((16, 640, 640, 0, "encode_batch"))
+    for b, h, w, r, method in runs_3scan:
+        xd = torch.from_numpy(synthetic_batch(rng2, b, h, w)).to(dev)
+        xd = xd[0] if method == "encode" else xd
+        for mode in MODES:
+            e = JpegEncoder(EncodeConfig(huffman=mode,
+                                         restart_interval_mcu_rows=r),
+                            device=dev)
+            call = getattr(e, method)
+            enc_ms = host_ms(lambda: call(xd), args.runs)
+            print(f"timing JpegEncoder.{method} 3scan {mode} {b}x{h}x{w} "
+                  f"restart_rows={r} on [{card}]: {enc_ms:.4f} ms "
+                  f"({b * h * w / 1e3 / enc_ms:.1f} MP/s); median of "
+                  f"{args.runs}")
+            per_call, idle = device_profile(lambda: call(xd), args.runs)
+            print(f"  device µs per {method} (torch.profiler, {args.runs} "
+                  f"calls): " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                      per_call.items(), key=lambda kv: -kv[1])) +
+                  f"; total {sum(per_call.values()):.2f}; device idle "
+                  f"share {idle:.4f}")
+    one = hist3[:1].cpu().numpy()
+    k2_ms = host_ms(lambda: FastBatchEncoder._build_tables_batch(one),
+                    args.runs)
+    print(f"timing K.2 builds + LUT of one image's 4 tables (host, the "
+          f"fixed cost of a dynamic encode) on [{card}]: {k2_ms:.4f} ms; "
+          f"median of {args.runs}")
+    x_big = torch.from_numpy(synthetic_batch(rng2, 1, 1280, 1920)).to(dev)
+    scan_kernel_times(x_big.reshape(1, 1280, 1920 * 3), consts, enc._lut,
+                      card, args.runs)
     times = {}
     for name, (kernel, plain) in calls.items():
         # in turns (plain, kernel, kernel, plain), so drift hits both alike

@@ -1,17 +1,25 @@
-"""PyTorch / CUDA port of the jpeg_tpu batch encoder.
+"""PyTorch / CUDA port of the jpeg_tpu encoders.
 
-``FastBatchEncoder`` serves the f32, 4:2:0, interleaved-scan batch encode
-with fixed (T.81 Annex K.3), dynamic and dynamic-sampled Huffman tables,
-and gives byte-identical JPEG files to
-``jpeg_tpu.pipelines.fast.FastBatchEncoder``.  On a CUDA device every step
-from u8 pixels to packed words runs in the hand-written kernels under
-``csrc/``; on the CPU the same steps run their plain PyTorch twins.
+* ``FastBatchEncoder``: the f32, 4:2:0, interleaved-scan batch encode with
+  fixed (T.81 Annex K.3), dynamic and dynamic-sampled Huffman tables,
+  byte-identical to ``jpeg_tpu.pipelines.fast.FastBatchEncoder``.
+* ``JpegEncoder`` (``encode``, ``encode_batch``, ``encode_any``,
+  ``encode_region``), ``encode_jpeg`` and ``encode_gray``: the one-shot
+  API of ``jpeg_tpu.pipelines.encode`` in both scan layouts ("3scan", the
+  default, and "interleaved"), byte-identical to ``jpeg_tpu``'s.
+
+On a CUDA device every step from u8 pixels to packed words runs in the
+hand-written kernels under ``csrc/``; on the CPU the same steps run their
+plain PyTorch twins.  The entry points run on the card unless the caller
+passes ``device="cpu"``.
 
 The package imports neither ``jax`` nor anything of ``jpeg_tpu``: it keeps
 its own copies of the host code it needs (``core``, ``huffman``,
 ``bitstream``, ``golden`` and the C++ runtime under ``native``).
 """
-from .core.types import EncodeConfig  # noqa: F401
+from .core.types import Area, EncodeConfig  # noqa: F401
+from .pipelines.encode import JpegEncoder, encode_gray, encode_jpeg  # noqa: F401
 from .pipelines.fast import FastBatchEncoder  # noqa: F401
 
-__all__ = ["EncodeConfig", "FastBatchEncoder"]
+__all__ = ["Area", "EncodeConfig", "FastBatchEncoder", "JpegEncoder",
+           "encode_gray", "encode_jpeg"]

@@ -31,14 +31,14 @@ _INT = ctypes.c_int
 # C entry point of each source: (function, argument types).  Every entry
 # returns the launch's cudaGetLastError() as an int.
 SIGNATURES = {
-    "front_dct": ("jt_front_dct", [_VOID] * 6 + [_INT] * 3 + [_VOID]),
+    "front_dct": ("jt_front_dct", [_VOID] * 6 + [_INT] * 4 + [_VOID]),
     "symbolize_bits": ("jt_symbolize_bits",
-                       [_VOID] * 5 + [_INT] * 2 + [_VOID]),
+                       [_VOID] * 5 + [_INT] * 4 + [_VOID]),
     "segment_offsets": ("jt_segment_offsets",
                         [_VOID] * 3 + [_INT] * 2 + [_VOID]),
     "place": ("jt_place", [_VOID] * 4 + [_INT] * 3 + [_VOID]),
     "symbolize_fields": ("jt_symbolize_fields",
-                         [_VOID] * 4 + [_INT] * 3 + [_VOID]),
+                         [_VOID] * 4 + [_INT] * 6 + [_VOID]),
     "attach_pf": ("jt_attach_pf", [_VOID] * 5 + [_INT] * 3 + [_VOID]),
 }
 

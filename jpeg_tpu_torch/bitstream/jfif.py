@@ -1,8 +1,10 @@
-"""JFIF marker stream emission for baseline interleaved files.
+"""JFIF marker stream emission for baseline files.
 
-The port's own copy of the parts of ``jpeg_tpu.bitstream.jfif`` that the
-batch encoder uses: SOI/APP0/DQT/DHT/SOF0/DRI, the interleaved SOS header,
-RSTn and EOI.  Bytes equal the original's (``tests/test_torch_host.py``).
+The port's own copy of the baseline parts of ``jpeg_tpu.bitstream.jfif``:
+SOI/APP0/DQT/DHT/SOF0/DRI, the interleaved and single-component SOS
+headers, RSTn and EOI, the grayscale header, the SOF size patch, and the
+3-scan and interleaved assembly.  Bytes equal the original's
+(``tests/test_torch_host.py``).
 """
 from __future__ import annotations
 
@@ -38,9 +40,19 @@ def dht_segment(tc_th: int, table: HuffmanTable) -> bytes:
 
 
 def sof0_segment(width: int, height: int,
-                 y_sampling: tuple[int, int] = (2, 2)) -> bytes:
-    """Baseline SOF0: 3 components, Y sampling ``y_sampling``, chroma 1x1."""
+                 y_sampling: tuple[int, int] = (2, 2),
+                 gray: bool = False) -> bytes:
+    """Baseline SOF0: 3 components, Y sampling ``y_sampling``, chroma 1x1;
+    gray=True emits a single-component frame."""
     ys = ((y_sampling[0] << 4) | y_sampling[1]) & 0xFF
+    if gray:
+        return bytes([
+            0xFF, 0xC0, 0x00, 0x0B, 0x08,
+            (height >> 8) & 0xFF, height & 0xFF,
+            (width >> 8) & 0xFF, width & 0xFF,
+            0x01,
+            0x01, 0x11, 0x00,
+        ])
     return bytes([
         0xFF, 0xC0, 0x00, 0x11, 0x08,
         (height >> 8) & 0xFF, height & 0xFF,
@@ -60,6 +72,12 @@ def dri_segment(restart_interval: int) -> bytes:
             "field; use more segments (smaller restart_interval_mcu_rows)")
     return bytes([0xFF, 0xDD, 0x00, 0x04,
                   (restart_interval >> 8) & 0xFF, restart_interval & 0xFF])
+
+
+def sos_header_single(component_id: int, dc_table: int, ac_table: int) -> bytes:
+    """Non-interleaved single-component SOS header."""
+    return bytes([0xFF, 0xDA, 0x00, 0x08, 0x01, component_id,
+                  ((dc_table << 4) | ac_table) & 0xFF, 0x00, 0x3F, 0x00])
 
 
 def sos_header_interleaved() -> bytes:
@@ -92,6 +110,82 @@ def headers(width: int, height: int, luma_q: np.ndarray,
     ]
     if restart_interval:
         out.append(dri_segment(restart_interval))
+    return b"".join(out)
+
+
+def headers_gray(width: int, height: int, luma_q, tables,
+                 restart_interval: int = 0) -> bytes:
+    """Single-component (grayscale) header: luma tables only."""
+    out = [
+        SOI,
+        APP0,
+        dqt_segment(0, luma_q),
+        dht_segment(0x00, tables["luma_dc"]),
+        dht_segment(0x10, tables["luma_ac"]),
+        sof0_segment(width, height, gray=True),
+    ]
+    if restart_interval:
+        out.append(dri_segment(restart_interval))
+    return b"".join(out)
+
+
+def patch_sof_dims(data: bytes, width: int, height: int) -> bytes:
+    """Rewrite the SOFn frame dimensions in an encoded stream.
+
+    The image is encoded padded to full MCUs but declared at its true size
+    (decoders discard samples beyond the SOF dims, T.81 A.2.1).  Recognizes
+    SOF0/1/2 and stops at SOS, after which entropy data follows.
+    """
+    pos = 2  # skip SOI
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF:
+            raise ValueError(f"expected marker at {pos}")
+        marker = data[pos + 1]
+        if marker in (0xC0, 0xC1, 0xC2):  # SOF0 / SOF1 / SOF2
+            out = bytearray(data)
+            out[pos + 5] = (height >> 8) & 0xFF
+            out[pos + 6] = height & 0xFF
+            out[pos + 7] = (width >> 8) & 0xFF
+            out[pos + 8] = width & 0xFF
+            return bytes(out)
+        if marker == 0xDA:  # SOS: entropy data follows, no SOF seen
+            raise ValueError("no SOFn marker before SOS")
+        seg_len = (data[pos + 2] << 8) | data[pos + 3]
+        pos += 2 + seg_len
+    raise ValueError("no SOFn marker found")
+
+
+def assemble_3scan(header: bytes, y_scan: bytes, cb_scan: bytes, cr_scan: bytes) -> bytes:
+    """The reference's 3 non-interleaved scans."""
+    return b"".join([
+        header,
+        sos_header_single(1, 0, 0), y_scan,
+        sos_header_single(2, 1, 1), cb_scan,
+        sos_header_single(3, 1, 1), cr_scan,
+        EOI,
+    ])
+
+
+def assemble_3scan_restarts(header: bytes,
+                            scans: list[tuple[int, list[bytes]]]) -> bytes:
+    """Non-interleaved scans with per-scan restart intervals.
+
+    ``scans`` is [(interval_blocks, segments), ...] in Y, Cb, Cr order.
+    Each scan gets its own DRI (per-component block counts differ; T.81
+    permits DRI between scans); RSTn markers separate the segments, with
+    the RST counter reset per scan.
+    """
+    comp = [(1, 0, 0), (2, 1, 1), (3, 1, 1)]
+    out = [header]
+    for (interval, segments), (cid, dc, ac) in zip(scans, comp):
+        if interval:
+            out.append(dri_segment(interval))
+        out.append(sos_header_single(cid, dc, ac))
+        for i, seg in enumerate(segments):
+            if i:
+                out.append(rst_marker(i - 1))
+            out.append(seg)
+    out.append(EOI)
     return b"".join(out)
 
 

@@ -1,14 +1,42 @@
-"""The encode configuration.
+"""The encode configuration and the window geometry.
 
-The port's own copy of ``jpeg_tpu.core.types.EncodeConfig``: the same
-fields, defaults and ``__post_init__`` messages, so a configuration means
-the same in both packages (``tests/test_torch_host.py`` holds them
-equal).
+The port's own copies of ``jpeg_tpu.core.types.EncodeConfig`` and
+``Area``: the same fields, defaults and ``__post_init__`` messages, so a
+configuration or a window means the same in both packages
+(``tests/test_torch_host.py`` holds them equal).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal
+
+
+@dataclasses.dataclass(frozen=True)
+class Area:
+    """A window of a larger frame; w and h must be multiples of 16."""
+
+    x: int
+    y: int
+    w: int
+    h: int
+
+    def __post_init__(self):
+        if self.w % 16 or self.h % 16:
+            raise ValueError(f"Area w/h must be multiples of 16, got {self.w}x{self.h}")
+        if self.x < 0 or self.y < 0:
+            raise ValueError(f"Area origin must be non-negative, got ({self.x},{self.y})")
+
+    @property
+    def num_pixels(self) -> int:
+        return self.w * self.h
+
+    @property
+    def mcus_x(self) -> int:
+        return self.w // 16
+
+    @property
+    def mcus_y(self) -> int:
+        return self.h // 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,8 +58,15 @@ class EncodeConfig:
     restart_interval_mcu_rows: if > 0, emit DRI and an RSTn marker every N
     MCU rows; each segment's DC prediction resets.
 
-    ``engine`` and ``debug_checks`` are kept for parity with ``jpeg_tpu``'s
-    class; the port's batch encoder does not read them.
+    engine: "pallas" or "xla" (``jpeg_tpu``'s entropy engines); "auto" is
+    "pallas" on a CUDA device and "xla" on the CPU.  Both run the same
+    kernels; in ``JpegEncoder``'s interleaved layout, "pallas" keeps
+    "dynamic-sampled" sampled and "xla" builds exact tables, as in
+    ``jpeg_tpu``.
+
+    debug_checks: ``JpegEncoder`` first runs ``utils.guards``'s numeric
+    sanitizers (quantizers >= 1, finite DCT, no coefficient clip).
+    ``FastBatchEncoder`` reads neither field.
     """
 
     quality: int | None = None

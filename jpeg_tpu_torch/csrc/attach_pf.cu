@@ -4,8 +4,12 @@
 // Replaces the unpack + attach of jpeg_tpu's kernels/fused.py::
 // _pf_place_kernel (attach_pack_pf, K3: _unpack_fields, then _attach_chunk
 // with the image's LUT) and of _attach_grouped_kernel (attach_pack_grouped,
-// K11).  Input pf [S, nblk, 64] int32 (kernel E's), luts [n_images, 1024]
-// int32 combined LUTs (code | length << 16); segment s uses LUT
+// K11); with one LUT, the combined-LUT lookup of kernels/lut.py::attach ->
+// _attach_kernel (K14, on jpeg_tpu's 3-scan path), and with one LUT per
+// group, attach_grouped -> _attach_kernel_grouped (K18c): the port's
+// kernels/lut.py packs their slot arrays into fields and calls this kernel.
+// Input pf [S, nblk, 64] int32 (kernel E's), luts [n_images, 1024] int32
+// combined LUTs (code | length << 16); segment s uses LUT
 // s / (S / n_images).  Outputs are kernel B's: value uint32 and nbits uint8
 // [S, nblk, 64] (code then amplitude bits, right-aligned) and bits int32
 // [S, nblk], so kernels C and D place them unchanged.

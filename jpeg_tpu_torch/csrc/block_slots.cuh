@@ -20,10 +20,22 @@
 
 namespace jt {
 
-// The interleaved MCU's block pattern: kYPerMcu Y blocks, then Cb and Cr.
-// 4:2:0 is Y00 Y01 Y10 Y11 Cb Cr; 4:2:2 and 4:4:4 change these two only.
-constexpr int kMcuPeriod = 6;
-constexpr int kYPerMcu = 4;
+// The block pattern of a segment: period blocks repeat, and the first
+// y_per_mcu of them are luma; each component's DC chain runs through its
+// own blocks in segment order.  Interleaved 4:2:0 is (6, 4): Y00 Y01 Y10
+// Y11 Cb Cr; 4:2:2 is (4, 2) and 4:4:4 (3, 1).  A single-component
+// (non-interleaved) scan is (1, 1) for Y and (1, 0) for Cb or Cr: every
+// block has the segment's luma flag and its DC predecessor is block b - 1.
+struct McuLayout {
+  int period;
+  int y_per_mcu;
+};
+
+__host__ __device__ inline bool layout_ok(McuLayout l) {
+  return l.period >= 1 && l.period <= 6 && l.y_per_mcu >= 0 &&
+         l.y_per_mcu <= l.period;
+}
+
 constexpr int kNullIndex = 1023;
 
 __device__ __forceinline__ int bit_length(int a) { return 32 - __clz(a); }
@@ -60,14 +72,14 @@ struct SlotPair {
 };
 
 // Symbolize block gb of [*, 64] int16 zig-zag coefficients; b is its index
-// within its segment (the DC chains restart at b = 0).  All 32 lanes of the
-// warp must call it together.
+// within its segment (the DC chains restart at b = 0), l the segment's
+// block pattern.  All 32 lanes of the warp must call it together.
 __device__ __forceinline__ SlotPair block_slots(const int16_t* coef,
                                                 long long gb, int b,
-                                                int lane) {
+                                                int lane, McuLayout l) {
   const unsigned full = 0xffffffffu;
-  const int pos = b % kMcuPeriod;
-  const int luma = pos < kYPerMcu;
+  const int pos = b % l.period;
+  const int luma = pos < l.y_per_mcu;
   const uint32_t pair =
       reinterpret_cast<const uint32_t*>(coef + gb * 64)[lane];
   int v0 = (int)(int16_t)(pair & 0xffffu);   // slot 2*lane
@@ -75,8 +87,9 @@ __device__ __forceinline__ SlotPair block_slots(const int16_t* coef,
   if (lane == 0) {
     // previous same-component DC: the last Y of the previous MCU for its
     // first Y block, the previous Y inside an MCU, one MCU back for chroma
-    const int d = pos == 0 ? kMcuPeriod - kYPerMcu + 1
-                           : (pos < kYPerMcu ? 1 : kMcuPeriod);
+    const int d = pos < l.y_per_mcu
+                      ? (pos == 0 ? l.period - l.y_per_mcu + 1 : 1)
+                      : l.period;
     const int prev_dc = b >= d ? (int)coef[(gb - d) * 64] : 0;
     v0 -= prev_dc;
   }

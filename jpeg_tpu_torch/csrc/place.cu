@@ -4,9 +4,11 @@
 // and _rowacc_mxu (local pack, bit shift, lane rotate and one-hot row
 // accumulation into the VMEM-resident words buffer of the mega kernel),
 // and _place_acc_kernel plus the XLA scatter_add of
-// kernels/fused.py::_segment_place on the two-phase route.  Inputs are
-// value uint32 and nbits uint8 [S, nblk, 64] and the exclusive block bit
-// offsets int32 [S, nblk]; the output is the words buffer uint32
+// kernels/fused.py::_segment_place on the two-phase route, and (after
+// kernel C) kernels/pack.py::pack_segments -> block_windows_t ->
+// _pack_kernel_t plus its row scatter_add (K15, jpeg_tpu's 3-scan pack).
+// Inputs are value uint32 and nbits uint8 [S, nblk, 64] and the exclusive
+// block bit offsets int32 [S, nblk]; the output is the words buffer uint32
 // [S, seg_words], zeroed by the entry point before the launch.  Bit i of
 // a segment's stream is bit 31 - (i & 31) of word i >> 5 (big-endian,
 // jpeg_tpu/ops/pack.py).

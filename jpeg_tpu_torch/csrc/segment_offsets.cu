@@ -3,7 +3,8 @@
 // Replaces the bit-offset carry of jpeg_tpu's place kernels: carry_ref and
 // _cumsum_lanes in kernels/fused.py::_place_body (the running sum that
 // the TPU's sequential grid carries from tile to tile), and the XLA
-// cumsum in kernels/fused.py::_segment_place on the two-phase route.
+// cumsum in kernels/fused.py::_segment_place on the two-phase route, and
+// the block offsets and totals of kernels/pack.py::pack_segments (K15).
 // Input is [S, nblk] int32 block bit counts; outputs are the exclusive
 // in-segment offsets [S, nblk] int32 and the segment totals [S] int32.
 //

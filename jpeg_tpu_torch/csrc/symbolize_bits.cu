@@ -6,8 +6,12 @@
 // the combined-LUT attach _attach_chunk, i.e. the outputs of
 // _dct_attach_kernel (value, nbits, bits) on the two-phase route and the
 // middle of _mega_place_kernel.  Input is [S, nblk, 64] int16 zig-zag
-// coefficients (S segments); outputs are per-slot value uint32 and nbits
-// uint8 [S, nblk, 64] and per-block bit counts int32 [S, nblk].
+// coefficients (S segments of one block pattern: the interleaved MCU, or a
+// single-component scan of Y or of chroma, see block_slots.cuh); outputs
+// are per-slot value uint32 and nbits uint8 [S, nblk, 64] and per-block
+// bit counts int32 [S, nblk].  With a single-component pattern it also
+// replaces the LUT attach of jpeg_tpu's 3-scan path, kernels/lut.py::attach
+// (K14), whose slot fields it computes itself.
 //
 // What bounds it on an H100: memory traffic (2 bytes in, 5 bytes out per
 // slot) and the serial dependence of each slot on the last nonzero slot
@@ -28,7 +32,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 symbolize_bits_kernel(const int16_t* __restrict__ coef,
                       const int* __restrict__ lut, uint32_t* __restrict__ value,
                       uint8_t* __restrict__ nbits, int* __restrict__ bits,
-                      int nblk, long long total_blocks) {
+                      int nblk, long long total_blocks, jt::McuLayout layout) {
   __shared__ int s_lut[1024];
   for (int i = threadIdx.x; i < 1024; i += blockDim.x) s_lut[i] = lut[i];
   __syncthreads();
@@ -39,7 +43,7 @@ symbolize_bits_kernel(const int16_t* __restrict__ coef,
   for (long long gb = (long long)blockIdx.x * kWarps + warp;
        gb < total_blocks; gb += (long long)gridDim.x * kWarps) {
     const int b = (int)(gb % nblk);  // block index within its segment
-    const jt::SlotPair s = jt::block_slots(coef, gb, b, lane);
+    const jt::SlotPair s = jt::block_slots(coef, gb, b, lane, layout);
     const int idx0 = s.idx0, ex0 = s.ex0, en0 = s.en0;
     const int idx1 = s.idx1, ex1 = s.ex1, en1 = s.en1;
     const int e0 = s_lut[idx0], e1 = s_lut[idx1];
@@ -62,7 +66,11 @@ symbolize_bits_kernel(const int16_t* __restrict__ coef,
 
 extern "C" int jt_symbolize_bits(const void* coef, const void* lut,
                                  void* value, void* nbits, void* bits,
-                                 int n_segs, int nblk, void* stream) {
+                                 int n_segs, int nblk, int period,
+                                 int y_per_mcu, void* stream) {
+  const jt::McuLayout layout{period, y_per_mcu};
+  if (!jt::layout_ok(layout) || nblk % period)
+    return (int)cudaErrorInvalidValue;
   const long long total = (long long)n_segs * nblk;
   if (total == 0) return (int)cudaGetLastError();
   int dev = 0, sms = 0;
@@ -73,6 +81,6 @@ extern "C" int jt_symbolize_bits(const void* coef, const void* lut,
   const int grid = (int)(need < cap ? need : cap);
   symbolize_bits_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
       (const int16_t*)coef, (const int*)lut, (uint32_t*)value,
-      (uint8_t*)nbits, (int*)bits, nblk, total);
+      (uint8_t*)nbits, (int*)bits, nblk, total, layout);
   return (int)cudaGetLastError();
 }

@@ -5,8 +5,11 @@
 // _mega_index_kernel with emit_fields=True (front_index, K2), the index
 // and field outputs of kernels/fused.py::dct_index_segments (K9) and
 // dct_symbolize_segments (K10), and the XLA histogram hist_1024_t of
-// pipelines/fast.py.  Input is [S, nblk, 64] int16 zig-zag coefficients
-// of n_images images (S / n_images consecutive segments each).  Outputs:
+// pipelines/fast.py, and, with a single-component block pattern (see
+// block_slots.cuh), the symbolize + histograms of jpeg_tpu's 3-scan
+// analyze (pipelines/encode.py::analyze_fn).  Input is [S, nblk, 64] int16
+// zig-zag coefficients of n_images images (S / n_images consecutive
+// segments each, all of one pattern).  Outputs:
 //   pf   [S, nblk, 64] int32: idx | extra_n << 10 | extra << 14 per slot
 //        (fused.py::_pack_fields; extra < 2^12, so bit 25 is the top);
 //   hist [n_images, 1024] int32: the count of each LUT index over the
@@ -20,7 +23,10 @@
 // logic of block_slots.cuh (shared with kernel B).  Every CTA covers
 // blocks of one image only (grid y = image) and keeps a 1024-bin
 // histogram in shared memory, then adds its non-zero bins to hist[image]
-// with global atomics; the wrapper's cudaMemsetAsync zeroes hist first.
+// with global atomics.  The entry point zeroes hist first
+// (cudaMemsetAsync) unless it is told to accumulate: a 3-scan image runs
+// one launch for its Y scan and one for its Cb and Cr scans into the same
+// rows, whose counts land in disjoint (luma, chroma) bins.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,7 +40,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 symbolize_fields_kernel(const int16_t* __restrict__ coef,
                         const uint8_t* __restrict__ mask,
                         int* __restrict__ pf, int* __restrict__ hist,
-                        int nblk, long long blocks_per_image) {
+                        int nblk, long long blocks_per_image,
+                        jt::McuLayout layout) {
   __shared__ int s_hist[1024];
   for (int i = threadIdx.x; i < 1024; i += blockDim.x) s_hist[i] = 0;
   __syncthreads();
@@ -46,7 +53,7 @@ symbolize_fields_kernel(const int16_t* __restrict__ coef,
        k < blocks_per_image; k += (long long)gridDim.x * kWarps) {
     const long long gb = base + k;
     const int b = (int)(k % nblk);  // block index within its segment
-    const jt::SlotPair s = jt::block_slots(coef, gb, b, lane);
+    const jt::SlotPair s = jt::block_slots(coef, gb, b, lane, layout);
     const int p0 = s.idx0 | (s.en0 << 10) | (s.ex0 << 14);
     const int p1 = s.idx1 | (s.en1 << 10) | (s.ex1 << 14);
     reinterpret_cast<int2*>(pf + gb * 64)[lane] = make_int2(p0, p1);
@@ -67,14 +74,20 @@ symbolize_fields_kernel(const int16_t* __restrict__ coef,
 
 extern "C" int jt_symbolize_fields(const void* coef, const void* mask,
                                    void* pf, void* hist, int n_images,
-                                   int segs_per_image, int nblk,
+                                   int segs_per_image, int nblk, int period,
+                                   int y_per_mcu, int accumulate,
                                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const jt::McuLayout layout{period, y_per_mcu};
+  if (!jt::layout_ok(layout) || nblk % period)
+    return (int)cudaErrorInvalidValue;
   const long long per_image = (long long)segs_per_image * nblk;
   if (n_images == 0) return (int)cudaGetLastError();
-  cudaError_t rc = cudaMemsetAsync(hist, 0,
-                                   (size_t)n_images * 1024 * sizeof(int), st);
-  if (rc != cudaSuccess) return (int)rc;
+  if (!accumulate) {
+    const cudaError_t rc = cudaMemsetAsync(
+        hist, 0, (size_t)n_images * 1024 * sizeof(int), st);
+    if (rc != cudaSuccess) return (int)rc;
+  }
   if (per_image == 0) return (int)cudaGetLastError();
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -86,6 +99,6 @@ extern "C" int jt_symbolize_fields(const void* coef, const void* mask,
   const dim3 grid((unsigned)(need < per ? need : per), (unsigned)n_images);
   symbolize_fields_kernel<<<grid, kWarps * 32, 0, st>>>(
       (const int16_t*)coef, (const uint8_t*)mask, (int*)pf, (int*)hist, nblk,
-      per_image);
+      per_image, layout);
   return (int)cudaGetLastError();
 }

@@ -18,13 +18,17 @@ words, and the dynamic-table stages around the histogram.
 * F ``attach_pf`` (``csrc/attach_pf.cu``): dynamic stage 2: unpack the
   fields and attach each image's LUT, giving B's outputs for C and D;
   ports the attach of ``_pf_place_kernel`` and ``_attach_grouped_kernel``.
+
+B and E take a segment ``layout`` (``ops.color.Layout``): the interleaved
+4:2:0 MCU, or one component's scan of the 3-scan layout (``SCAN_Y``,
+``SCAN_CHROMA``), which sets each block's luma flag and DC predecessor.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops import dct, symbols
-from ..ops.color import PERIOD
+from ..ops.color import MCU_420, Layout
 from ..ops.pack import max_words_for_slots
 from . import check_tensor, launch, on_cpu
 from .lut import NULL_INDEX
@@ -42,34 +46,44 @@ def _attach_plain(entry: torch.Tensor, extra: torch.Tensor,
             nb.sum(dim=-1, dtype=torch.int32))
 
 
-def symbolize_bits_plain(coef: torch.Tensor, lut: torch.Tensor):
+def _check_layout(name: str, nblk: int, layout: Layout) -> None:
+    period, ypm = layout
+    if not (1 <= period <= 6 and 0 <= ypm <= period) or nblk % period:
+        raise ValueError(f"{name}: {nblk} blocks per segment are not whole "
+                         f"MCUs of the layout {tuple(layout)}")
+
+
+def symbolize_bits_plain(coef: torch.Tensor, lut: torch.Tensor,
+                         layout: Layout = MCU_420):
     """Plain twin of ``symbolize_bits``, on any device."""
-    idx, extra, extra_n = symbols.symbolize(coef, dct.dc_diff(coef))
+    idx, extra, extra_n = symbols.symbolize(coef, dct.dc_diff(coef, layout),
+                                            layout)
     return _attach_plain(lut[idx], extra, extra_n)
 
 
-def symbolize_bits(coef: torch.Tensor, lut: torch.Tensor):
+def symbolize_bits(coef: torch.Tensor, lut: torch.Tensor,
+                   layout: Layout = MCU_420):
     """[S, nblk, 64] int16 coefs -> (value, nbits, bits).
 
     ``value`` uint32 and ``nbits`` uint8 are [S, nblk, 64], one Huffman
     field (code then amplitude bits, right-aligned) per slot; ``bits`` is
     int32 [S, nblk], the bits of each block.  Each segment restarts the DC
-    prediction.  ``lut`` is the [1024] int32 combined LUT.
+    prediction.  ``lut`` is the [1024] int32 combined LUT; every segment
+    has the block pattern ``layout``.
     """
     if on_cpu(coef, lut):
-        return symbolize_bits_plain(coef, lut)
+        return symbolize_bits_plain(coef, lut, layout)
     S, nblk, _ = coef.shape
     check_tensor("coef", coef, torch.int16, (S, nblk, 64))
     check_tensor("lut", lut, torch.int32, (1024,))
-    if nblk % PERIOD:
-        raise ValueError(f"symbolize_bits: {nblk} blocks per segment is not "
-                         f"a whole number of 4:2:0 MCUs")
+    _check_layout("symbolize_bits", nblk, layout)
     dev = coef.device
     value = torch.empty((S, nblk, 64), dtype=torch.uint32, device=dev)
     nbits = torch.empty((S, nblk, 64), dtype=torch.uint8, device=dev)
     bits = torch.empty((S, nblk), dtype=torch.int32, device=dev)
     launch("symbolize_bits", dev, coef.data_ptr(), lut.data_ptr(),
-           value.data_ptr(), nbits.data_ptr(), bits.data_ptr(), S, nblk)
+           value.data_ptr(), nbits.data_ptr(), bits.data_ptr(), S, nblk,
+           *layout)
     return value, nbits, bits
 
 
@@ -167,46 +181,64 @@ def unpack_fields(pf):
 
 
 def symbolize_fields_plain(coef: torch.Tensor, n_images: int,
-                           mask: torch.Tensor | None = None):
+                           mask: torch.Tensor | None = None,
+                           layout: Layout = MCU_420,
+                           hist: torch.Tensor | None = None):
     """Plain twin of ``symbolize_fields``, on any device."""
-    idx, extra, extra_n = symbols.symbolize(coef, dct.dc_diff(coef))
+    idx, extra, extra_n = symbols.symbolize(coef, dct.dc_diff(coef, layout),
+                                            layout)
     per_image = idx.reshape(n_images, -1, 64)
     keep = per_image != NULL_INDEX
     if mask is not None:
         keep &= mask.to(torch.bool)[None, :, None]
     image = torch.arange(n_images, device=idx.device)[:, None, None]
     flat = (image * 1024 + per_image)[keep].to(torch.int64)
-    hist = torch.bincount(flat, minlength=n_images * 1024)
-    return (pack_fields(idx, extra, extra_n),
-            hist.to(torch.int32).view(n_images, 1024))
+    counts = torch.bincount(flat, minlength=n_images * 1024)
+    counts = counts.to(torch.int32).view(n_images, 1024)
+    if hist is not None:
+        hist += counts
+        counts = hist
+    return pack_fields(idx, extra, extra_n), counts
 
 
 def symbolize_fields(coef: torch.Tensor, n_images: int,
-                     mask: torch.Tensor | None = None):
+                     mask: torch.Tensor | None = None,
+                     layout: Layout = MCU_420,
+                     hist: torch.Tensor | None = None):
     """[S, nblk, 64] int16 coefs of ``n_images`` images -> (pf, hist).
 
     ``pf`` int32 [S, nblk, 64] holds each slot's ``pack_fields``; ``hist``
     int32 [n_images, 1024] counts each image's LUT indices over its slots,
     or over the slots of the blocks whose ``mask`` byte (uint8 [blocks per
     image], in block order) is non-zero.  NULL slots are not counted, so
-    bin 1023 is 0.  Each image is ``S / n_images`` consecutive segments,
-    and each segment restarts the DC prediction.
+    bin 1023 is 0.  Each image is ``S / n_images`` consecutive segments of
+    the block pattern ``layout``, and each segment restarts the DC
+    prediction.  Given ``hist``, the counts are added to it in place (a
+    3-scan image's Y scan and its Cb + Cr scans, whose bins are disjoint,
+    count into one row) and it is returned.
     """
-    if on_cpu(*([coef] if mask is None else [coef, mask])):
-        return symbolize_fields_plain(coef, n_images, mask)
+    tensors = [coef] + [t for t in (mask, hist) if t is not None]
+    if on_cpu(*tensors):
+        return symbolize_fields_plain(coef, n_images, mask, layout, hist)
     S, nblk, _ = coef.shape
     check_tensor("coef", coef, torch.int16, (S, nblk, 64))
-    if n_images < 1 or S % n_images or n_images > 65535 or nblk % PERIOD:
-        raise ValueError(f"symbolize_fields: {S} segments of {nblk} blocks "
-                         f"are not {n_images} images of whole 4:2:0 MCUs")
+    if n_images < 1 or S % n_images or n_images > 65535:
+        raise ValueError(f"symbolize_fields: {S} segments are not "
+                         f"{n_images} images")
+    _check_layout("symbolize_fields", nblk, layout)
     if mask is not None:
         check_tensor("mask", mask, torch.uint8, (S // n_images * nblk,))
     dev = coef.device
     pf = torch.empty((S, nblk, 64), dtype=torch.int32, device=dev)
-    hist = torch.empty((n_images, 1024), dtype=torch.int32, device=dev)
+    accumulate = hist is not None
+    if accumulate:
+        check_tensor("hist", hist, torch.int32, (n_images, 1024))
+    else:
+        hist = torch.empty((n_images, 1024), dtype=torch.int32, device=dev)
     launch("symbolize_fields", dev, coef.data_ptr(),
            None if mask is None else mask.data_ptr(), pf.data_ptr(),
-           hist.data_ptr(), n_images, S // n_images, nblk)
+           hist.data_ptr(), n_images, S // n_images, nblk, *layout,
+           int(accumulate))
     return pf, hist
 
 

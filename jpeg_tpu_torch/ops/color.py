@@ -9,11 +9,27 @@ larger than an f32 ulp of the quotient.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-# blocks per MCU in the interleaved 4:2:0 scan: Y00 Y01 Y10 Y11 Cb Cr
-PERIOD = 6
-Y_PER_MCU = 4
+
+class Layout(NamedTuple):
+    """The block pattern of a scan's segments: ``period`` blocks repeat,
+    and the first ``y_per_mcu`` of them are luma.  Each component's DC
+    chain runs through its own blocks in segment order."""
+    period: int
+    y_per_mcu: int
+
+
+# the interleaved 4:2:0 MCU: Y00 Y01 Y10 Y11 Cb Cr
+MCU_420 = Layout(6, 4)
+# a single-component (non-interleaved) scan: one block per MCU, luma (Y)
+# or chroma (Cb, Cr); its DC predecessor is the block before
+SCAN_Y = Layout(1, 1)
+SCAN_CHROMA = Layout(1, 0)
+
+PERIOD, Y_PER_MCU = MCU_420
 
 
 def rgb_to_ycbcr_420(rgb: torch.Tensor):
@@ -58,3 +74,17 @@ def mcu_blocks(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor):
     crb = to_blocks(cr).reshape(B, my * mx, 1, 64)
     out = torch.cat([yb, cbb, crb], dim=2)
     return out.reshape(B, my * mx * PERIOD, 64).to(torch.float32)
+
+
+def scan_blocks(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor):
+    """Planes of [B, ...] images -> [B * n_mcus * 6, 64] f32 pixel blocks
+    in the 3-scan order: the Y blocks of every image (each image's in
+    raster order), then per image its Cb blocks and its Cr blocks (raster
+    order).  Every image's Y scan, and every image's Cb + Cr scans, are
+    then contiguous runs of equal length."""
+    B = y.shape[0]
+    yb = to_blocks(y).reshape(-1, 64)
+    cbb = to_blocks(cb).reshape(B, -1, 64)
+    crb = to_blocks(cr).reshape(B, -1, 64)
+    chroma = torch.cat([cbb, crb], dim=1).reshape(-1, 64)
+    return torch.cat([yb, chroma]).to(torch.float32)

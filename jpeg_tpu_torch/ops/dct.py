@@ -6,7 +6,8 @@ DC-chain math inside ``jpeg_tpu.kernels.fused._dct_symbolize_chunk_v``:
 * ``zz = px @ M.T + bias`` with M the zig-zag-ordered flat DCT basis
   (``tables.dct_flat_basis``) and the -128 level shift folded into bias;
 * an f32 divide by the zig-zag quantizer, trunc, clip to [-2048, 2047];
-* per-component DC differences that reset at every segment start.
+* per-component DC differences that reset at every segment start
+  (``jpeg_tpu.ops.dct.diff_dc`` along each component's own blocks).
 
 The matmul must run in full f32: callers on a card set
 ``torch.backends.cuda.matmul.allow_tf32 = False`` and
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .color import PERIOD, Y_PER_MCU
+from .color import MCU_420, Layout
 
 COEF_MIN, COEF_MAX = -2048, 2047
 
@@ -27,35 +28,44 @@ def set_exact_matmul() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
-def is_luma_block(n_blocks: int, device) -> torch.Tensor:
-    """[n_blocks] bool: the interleaved MCU pattern Y Y Y Y Cb Cr."""
-    pos = torch.arange(n_blocks, device=device) % PERIOD
-    return pos < Y_PER_MCU
+def is_luma_block(n_blocks: int, device,
+                  layout: Layout = MCU_420) -> torch.Tensor:
+    """[n_blocks] bool: the luma blocks of ``layout``'s pattern."""
+    pos = torch.arange(n_blocks, device=device) % layout.period
+    return pos < layout.y_per_mcu
 
 
 def dct_quantize(px: torch.Tensor, m: torch.Tensor, bias: torch.Tensor,
-                 ql: torch.Tensor, qc: torch.Tensor) -> torch.Tensor:
-    """[..., n, 64] f32 pixel blocks in MCU order -> int16 zig-zag coefs."""
+                 ql: torch.Tensor, qc: torch.Tensor,
+                 luma: torch.Tensor | None = None) -> torch.Tensor:
+    """[..., n, 64] f32 pixel blocks -> int16 zig-zag coefs.
+
+    ``luma`` ([n] bool) picks ``ql`` over ``qc`` per block; by default the
+    blocks are in the interleaved 4:2:0 MCU order.
+    """
     f = torch.matmul(px, m.T) + bias
-    luma = is_luma_block(px.shape[-2], px.device)[:, None]
-    q = torch.where(luma, ql, qc)
+    if luma is None:
+        luma = is_luma_block(px.shape[-2], px.device)
+    q = torch.where(luma[:, None], ql, qc)
     v = torch.trunc(f / q).clamp(COEF_MIN, COEF_MAX)
     return v.to(torch.int16)
 
 
-def dc_diff(coef: torch.Tensor) -> torch.Tensor:
+def dc_diff(coef: torch.Tensor, layout: Layout = MCU_420) -> torch.Tensor:
     """[S, nblk, 64] coefs -> [S, nblk] int32 per-component DC differences.
 
-    Each segment restarts the Y, Cb and Cr prediction chains at 0.
+    Each segment restarts every component's prediction chain at 0; the Y
+    blocks of ``layout`` form one chain, each chroma position its own.
     """
     S, nblk = coef.shape[0], coef.shape[1]
-    dc = coef[..., 0].to(torch.int32).reshape(S, nblk // PERIOD, PERIOD)
+    period, ypm = layout
+    dc = coef[..., 0].to(torch.int32).reshape(S, nblk // period, period)
 
     def diff(chain):  # [S, n] -> [S, n]
         prev = torch.nn.functional.pad(chain[:, :-1], (1, 0))
         return chain - prev
 
-    y = diff(dc[..., :Y_PER_MCU].reshape(S, -1)).reshape(S, -1, Y_PER_MCU)
-    cb = diff(dc[..., Y_PER_MCU])[..., None]
-    cr = diff(dc[..., Y_PER_MCU + 1])[..., None]
-    return torch.cat([y, cb, cr], dim=-1).reshape(S, nblk)
+    parts = [diff(dc[..., :ypm].reshape(S, -1)).reshape(S, -1, ypm)] \
+        if ypm else []
+    parts += [diff(dc[..., c])[..., None] for c in range(ypm, period)]
+    return torch.cat(parts, dim=-1).reshape(S, nblk)

@@ -1,33 +1,42 @@
 """The block sample of ``huffman="dynamic-sampled"``.
 
 ``jpeg_tpu`` histograms every 5th column of its stage-1 layout
-(``pipelines/fast.py::_hist_src``).  On its front route
-(``kernels/front.py::front_index``) an image is ``n_pseudo`` pseudo-images
-of ``slabs`` 128-row slabs, and slab ``g`` of pseudo-image ``s`` holds
-``slab_cols`` real blocks in MCU order, then phantom blocks up to the
-padded width ``sc_p``.  Block ``j`` of that slab sits in column
-``(s * slabs + g) * sc_p + j``.  Phantom and padded-row columns hold NULL
-slots, whose bin is dropped, but they still shift which real blocks land
-on a multiple of 5; so the port keeps the column of each real block and
-samples those, not every 5th block.
+(``pipelines/fast.py::_hist_src``), and that layout depends on which of
+two stage-1 routes its ``FastBatchEncoder`` takes (``_front_index_ok``):
 
-Where the layout has no padding the column is the block index, which is
-also ``jpeg_tpu``'s other route (``dct_index_segments`` over
-``analyze_px``).  The two differ only at geometries past ``jpeg_tpu``'s
-VMEM gates that are also padded (ROADMAP queue 3).
+* the front route (``kernels/front.py::front_index``): an image is
+  ``n_pseudo`` pseudo-images of ``slabs`` 128-row slabs, and slab ``g``
+  of pseudo-image ``s`` holds ``slab_cols`` real blocks in MCU order, then
+  phantom blocks up to the padded width ``sc_p``.  Block ``j`` of that
+  slab sits in column ``(s * slabs + g) * sc_p + j``;
+* the pixel route (``analyze_px`` + ``fused.dct_index_segments``), taken
+  when the front's VMEM gates fail: each restart segment's blocks, in MCU
+  order, padded to a multiple of 128 blocks, one segment after another.
 
-``slab_cols``, ``pick_slab_pad`` and ``aligned_segments`` are the port's
-copies of the ``jpeg_tpu.kernels.front`` helpers (4:2:0).
+Padded columns hold NULL slots, whose bin is dropped, but they still
+shift which real blocks land on a multiple of 5; so the port keeps the
+column of each real block and samples those, not every 5th block.
+``front_index_route`` is the port's copy of the gate, as shape
+arithmetic only: ``front_eligible``, the resident-words budget, and the
+VMEM estimates ``mega_fits`` and ``analyze_fits`` of
+``jpeg_tpu.kernels.front`` (4:2:0), whose permutation-matrix sizes it
+computes from their shapes.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .color import PERIOD
+from ..kernels.pack import rows_per_segment
 
 SAMPLE_STRIDE = 5   # coprime to every MCU period (6, 4, 3)
 _SLAB_ROWS = 128
 _MCU = 16
+_MAX_W = 8192                       # kernels/front.py: per-slab VMEM bound
+_STRIP_MCU = 64                     # kernels/front.py: strip width, MCUs
+_VMEM_EST_LIMIT = 16 << 20          # kernels/front.py: scoped-VMEM budget
+_RESIDENT_VMEM_BUDGET = 6 * 2 ** 20  # kernels/fused.py: resident words
+_PX_TILE = 128                      # kernels/fused.py: _TB, segment pad
 
 
 def slab_cols(mx: int) -> int:
@@ -59,9 +68,94 @@ def aligned_segments(height: int, n_segs_per_image: int) -> bool:
              (height // _SLAB_ROWS) % n_segs_per_image == 0))
 
 
+# -- the route gate (jpeg_tpu's FastBatchEncoder._front_index_ok) -----------
+
+
+def front_eligible(height: int, width: int, n_segs: int) -> bool:
+    """``kernels/front.py::front_eligible`` for 4:2:0."""
+    if width % _MCU or height % _MCU or width > _MAX_W:
+        return False
+    return n_segs == 1 or (height // _MCU) % n_segs == 0
+
+
+def _strip_plan(mx: int) -> list[int]:
+    """Strip widths (MCUs) of ``mx`` MCU columns: uniform if a divisor
+    >= 32 exists, else 64-wide strips plus the remainder."""
+    if mx <= _STRIP_MCU:
+        return [mx]
+    kmin = -(-mx // _STRIP_MCU)
+    for k in range(kmin, max(kmin, mx // 32) + 1):
+        if mx % k == 0:
+            return [mx // k] * k
+    k, rem = divmod(mx, _STRIP_MCU)
+    return [_STRIP_MCU] * k + ([rem] if rem else [])
+
+
+def _const_bytes(mx: int) -> int:
+    """bf16 bytes of the per-strip permutation matrices of the 4:2:0
+    front (``_consts_np``: sel, il8, r1y, r1c, ps2, lc2, rny, rcb, rcr),
+    from their shapes."""
+    total = 0
+    for m in set(_strip_plan(mx)):
+        w = 16 * m
+        total += 2 * (384 * 384 + 64 * 64 + w * w + (w // 2) ** 2
+                      + w * (w // 2) + 64 * 128 + 4 * m * 6 * m
+                      + 2 * m * 6 * m)
+    return total
+
+
+def mega_vmem_bytes(mx: int, seg_rows: int, cbp: int) -> int:
+    """Estimated scoped VMEM of one ``front_place`` grid step."""
+    sc = slab_cols(mx)
+    seg_rows_p = (seg_rows + 7) & ~7
+    return (_const_bytes(mx) + 2 * 128 * 16 * mx * 3 + 2 * 64 * sc * 4
+            + seg_rows_p * 128 * 4 + (128 + 2) * cbp * 4 + 6 * 64 * cbp * 4)
+
+
+def mega_fits(mx: int, seg_rows: int) -> bool:
+    """``pick_mega_layout``'s verdict: some 128-multiple chunk of the
+    padded slab fits the VMEM estimate."""
+    sc_p, cbp = pick_slab_pad(slab_cols(mx))
+    while mega_vmem_bytes(mx, seg_rows, cbp) > _VMEM_EST_LIMIT:
+        smaller = [c for c in range(cbp - 128, 0, -128) if sc_p % c == 0]
+        if not smaller:
+            return False
+        cbp = smaller[0]
+    return True
+
+
+def analyze_fits(mx: int) -> bool:
+    """``analyze_fits(mx, "420", n_outputs=1)`` (the index kernel)."""
+    sc_p, cbp = pick_slab_pad(slab_cols(mx))
+    est = (_const_bytes(mx) + 2 * 128 * 16 * mx * 3 + 2 * 64 * sc_p * 4
+           + 2 * 64 * sc_p * 4 + 4 * 64 * cbp * 4)
+    return est <= _VMEM_EST_LIMIT
+
+
+def front_index_route(height: int, width: int, n_segs: int) -> bool:
+    """True where ``jpeg_tpu``'s dynamic stage 1 takes the front route
+    (``_front_index_ok``), False where it takes the pixel route."""
+    if not front_eligible(height, width, n_segs):
+        return False
+    blocks_per_seg = (height // _MCU) * (width // _MCU) // n_segs * PERIOD
+    seg_rows = rows_per_segment(blocks_per_seg * 64)
+    mx = width // _MCU
+    return (((seg_rows + 7) & ~7) * 128 * 4 <= _RESIDENT_VMEM_BUDGET
+            and mega_fits(mx, seg_rows) and analyze_fits(mx))
+
+
+# -- the sample ---------------------------------------------------------------
+
+
 def stage1_columns(height: int, width: int, n_segs: int) -> np.ndarray:
     """int64 [blocks per image]: the column of each real block (in the
-    port's block order) in ``jpeg_tpu``'s per-image stage-1 layout."""
+    port's block order) in ``jpeg_tpu``'s per-image stage-1 layout, on the
+    route ``front_index_route`` picks."""
+    per_seg = (height // _MCU) * (width // _MCU) // n_segs * PERIOD
+    if not front_index_route(height, width, n_segs):
+        k = np.arange(n_segs * per_seg, dtype=np.int64)
+        seg_p = -(-per_seg // _PX_TILE) * _PX_TILE
+        return k // per_seg * seg_p + k % per_seg
     sc = slab_cols(width // _MCU)
     sc_p, _ = pick_slab_pad(sc)
     n_pseudo = 1 if aligned_segments(height, n_segs) else n_segs

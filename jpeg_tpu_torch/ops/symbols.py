@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.lut import slot_index
+from .color import MCU_420, Layout
 from .dct import is_luma_block
 
 
@@ -20,10 +21,12 @@ def bit_length(a: torch.Tensor) -> torch.Tensor:
     return torch.frexp(a.to(torch.float32)).exponent.to(torch.int32)
 
 
-def symbolize(coef: torch.Tensor, dcd: torch.Tensor):
+def symbolize(coef: torch.Tensor, dcd: torch.Tensor,
+              layout: Layout = MCU_420):
     """[S, nblk, 64] coefs + [S, nblk] DC diffs -> (idx, extra, extra_n).
 
-    All three are int32 [S, nblk, 64]; ``idx`` indexes the combined LUT.
+    All three are int32 [S, nblk, 64]; ``idx`` indexes the combined LUT,
+    whose luma half ``layout``'s luma blocks use.
     """
     v = coef.to(torch.int32).clone()
     v[..., 0] = dcd
@@ -56,7 +59,8 @@ def symbolize(coef: torch.Tensor, dcd: torch.Tensor):
     extra_n = torch.where(is_dc, cls, extra_n)
     valid = valid | is_dc
 
-    is_luma = is_luma_block(v.shape[-2], v.device)[:, None].expand_as(v)
+    is_luma = is_luma_block(v.shape[-2], v.device,
+                            layout)[:, None].expand_as(v)
     idx = slot_index(sym, valid, is_dc, is_luma)
     extra = torch.where(valid, extra, zero)
     extra_n = torch.where(valid, extra_n, zero)

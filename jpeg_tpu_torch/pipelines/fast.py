@@ -30,9 +30,9 @@ from ..bitstream import jfif
 from ..core import tables as T
 from ..core.types import EncodeConfig
 from ..huffman.build import HuffmanTable, build_tables_batch, fixed_tables
-from ..kernels import fused, front
+from ..kernels import front, fused
+from ..kernels import pack as kpack
 from ..kernels.lut import NULL_INDEX, build_combined_lut
-from ..ops import pack as ops_pack
 from ..ops.color import PERIOD
 from ..ops.sample import sample_mask
 
@@ -72,6 +72,20 @@ def host_constants(quality: int | None) -> dict[str, np.ndarray]:
             "lut": build_combined_lut(fixed_tables())}
 
 
+def check_ported(config: EncodeConfig) -> None:
+    """Raise NotImplementedError for the settings the port does not serve
+    yet, naming their ROADMAP item."""
+    if config.subsampling != "420":
+        raise NotImplementedError(
+            f"subsampling={config.subsampling!r} is not ported yet "
+            f"(ROADMAP queue 1 item 3, main-path geometries: 4:2:2 and "
+            f"4:4:4)")
+    if config.dtype != "float32":
+        raise NotImplementedError(
+            f"dtype={config.dtype!r} is not ported yet "
+            f"(ROADMAP queue 1 item 6, f64 exact mode)")
+
+
 class FastBatchEncoder:
     """Single-device batched interleaved encoder on hand-written CUDA
     kernels.
@@ -93,15 +107,7 @@ class FastBatchEncoder:
                                              huffman="fixed")
         if self.config.scan_layout != "interleaved":
             raise ValueError("FastBatchEncoder is interleaved-only")
-        if self.config.subsampling != "420":
-            raise NotImplementedError(
-                f"subsampling={self.config.subsampling!r} is not ported yet "
-                f"(ROADMAP queue 1 item 3, main-path geometries: 4:2:2 and "
-                f"4:4:4)")
-        if self.config.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype={self.config.dtype!r} is not ported yet "
-                f"(ROADMAP queue 1 item 5, f64 exact mode)")
+        check_ported(self.config)
         if height % _MCU or width % _MCU:
             raise ValueError(f"dimensions must be multiples of "
                              f"{_MCU}x{_MCU}, got {width}x{height}")
@@ -121,7 +127,7 @@ class FastBatchEncoder:
         self.n_segs = segs_per_image
         self.mcus_per_segment = nm // segs_per_image
         self.blocks_per_seg = self.mcus_per_segment * PERIOD
-        self.seg_rows = ops_pack.rows_per_segment(self.blocks_per_seg * 64)
+        self.seg_rows = kpack.rows_per_segment(self.blocks_per_seg * 64)
         if self.seg_rows * 128 * 32 >= 2 ** 31:
             raise ValueError("segment space exceeds int32 bit offsets")
         self.device = torch.device(device)
@@ -165,8 +171,8 @@ class FastBatchEncoder:
         x = self._check_batch(rgbs)
         B, S = x.shape[0], self.n_segs
         value, nbits, bits = fused.symbolize_bits(self._coefs(x), self._lut)
-        offs, totals = fused.segment_offsets(bits)
-        words = fused.place(value, nbits, offs, self.seg_rows * 128)
+        words, totals = kpack.pack_segments(value, nbits, B * S,
+                                            self.seg_rows, bits)
         return words.view(B, S, -1), totals.view(B, S)
 
     def dynamic_pack(self, rgbs):
@@ -195,14 +201,15 @@ class FastBatchEncoder:
             words, totals, tables = self.dynamic_pack(rgbs)
         return self._assemble(*self._fetch(words, totals), tables)
 
-    def _fetch(self, words: torch.Tensor, totals: torch.Tensor):
-        """Device words and totals -> host (words [B, S, cap] uint32,
-        totals [B, S] int32), fetching only the used prefix of every
-        segment's words."""
+    @staticmethod
+    def _fetch(words: torch.Tensor, totals: torch.Tensor):
+        """Device words [..., seg_words] and totals [...] -> host (words
+        [..., cap] uint32, totals int32), fetching only the used prefix of
+        every segment's words."""
         totals_np = totals.cpu().numpy()
         used = (int(totals_np.max(initial=0)) + 31) // 32 + 1
         cap = min(used, words.shape[-1])
-        return words[:, :, :cap].cpu().numpy(), totals_np
+        return words[..., :cap].cpu().numpy(), totals_np
 
     def _assemble(self, words_np: np.ndarray, totals_np: np.ndarray,
                   tables: list | None = None) -> list[bytes]:
@@ -260,8 +267,8 @@ class FastBatchEncoder:
         totals [B, S]), kernels F, C and D."""
         B, S = luts.shape[0], self.n_segs
         value, nbits, bits = fused.attach_pf(pf, luts)
-        offs, totals = fused.segment_offsets(bits)
-        words = fused.place(value, nbits, offs, self.seg_rows * 128)
+        words, totals = kpack.pack_segments(value, nbits, B * S,
+                                            self.seg_rows, bits)
         return words.view(B, S, -1), totals.view(B, S)
 
     # -- helpers -------------------------------------------------------------

@@ -171,3 +171,77 @@ def test_encode_config_matches():
         with pytest.raises(ValueError) as g:
             EncodeConfig(**bad)
         assert str(g.value) == str(w.value)
+
+
+def test_area_matches():
+    from jpeg_tpu.core.types import Area as JaxArea
+    from jpeg_tpu_torch import Area
+    got = {f.name: f.default for f in dataclasses.fields(Area)}
+    want = {f.name: f.default for f in dataclasses.fields(JaxArea)}
+    assert got == want
+    a, b = Area(16, 32, 64, 48), JaxArea(16, 32, 64, 48)
+    assert repr(a) == repr(b)
+    assert (a.num_pixels, a.mcus_x, a.mcus_y) == \
+        (b.num_pixels, b.mcus_x, b.mcus_y) == (3072, 4, 3)
+    for bad in ((0, 0, 24, 16), (0, 0, 16, 8), (-16, 0, 16, 16),
+                (0, -1, 16, 16)):
+        with pytest.raises(ValueError) as w:
+            JaxArea(*bad)
+        with pytest.raises(ValueError) as g:
+            Area(*bad)
+        assert str(g.value) == str(w.value)
+
+
+@pytest.mark.parametrize("kind", ["fixed", "built"])
+def test_jfif_3scan_and_gray_writers_match(kind):
+    if kind == "fixed":
+        tables, jtables = build.fixed_tables(), jbuild.fixed_tables()
+    else:
+        names = ("luma_dc", "luma_ac", "chroma_dc", "chroma_ac")
+        hists = np.stack(_histograms()[4:8])
+        tables = dict(zip(names, build.build_tables_batch(hists)))
+        jtables = dict(zip(names, jbuild.build_tables_batch(hists)))
+    lq, cq = T.quant_tables(50)
+    for args in ((1, 0, 0), (2, 1, 1), (3, 1, 1)):
+        assert jfif.sos_header_single(*args) == jjfif.sos_header_single(*args)
+    for ri in (0, 40):
+        assert jfif.headers_gray(72, 48, lq, tables, restart_interval=ri) \
+            == jjfif.headers_gray(72, 48, lq, jtables, restart_interval=ri)
+    assert jfif.sof0_segment(33, 17, gray=True) == \
+        jjfif.sof0_segment(33, 17, gray=True)
+    header = jfif.headers(640, 480, lq, cq, tables)
+    assert header == jjfif.headers(640, 480, lq, cq, jtables)
+    scans = [b"\x01\x02", b"\xff\x00\x03", b"\x04"]
+    assert jfif.assemble_3scan(header, *scans) == \
+        jjfif.assemble_3scan(header, *scans)
+    restarts = [(80, [b"\x11", b"\x12", b"\x13"]), (40, [b"\x21", b"\x22"]),
+                (0, [b"\x31"])]
+    assert jfif.assemble_3scan_restarts(header, restarts) == \
+        jjfif.assemble_3scan_restarts(header, restarts)
+    data = jfif.assemble_3scan(header, *scans)
+    assert jfif.patch_sof_dims(data, 630, 475) == \
+        jjfif.patch_sof_dims(data, 630, 475)
+    assert jfif.patch_sof_dims(data, 630, 475) != data
+
+
+@pytest.mark.parametrize("data", [b"\xff\xd8\x00\x00\x00\x04",
+                                  b"\xff\xd8\xff\xda\x00\x08",
+                                  b"\xff\xd8\xff\xe0\x00\x02"])
+def test_patch_sof_dims_errors_match(data):
+    with pytest.raises(ValueError) as w:
+        jjfif.patch_sof_dims(data, 8, 8)
+    with pytest.raises(ValueError) as g:
+        jfif.patch_sof_dims(data, 8, 8)
+    assert str(g.value) == str(w.value)
+
+
+def test_finish_scan_matches():
+    from jpeg_tpu.ops import pack as jpack_ops
+    from jpeg_tpu_torch.ops import pack as pack_ops
+    rng = np.random.default_rng(71)
+    words = rng.integers(0, 1 << 32, size=40, dtype=np.uint64).astype(
+        np.uint32)
+    words[::4] |= 0xFF000000
+    for total in (0, 5, 64, 1000, 1273):
+        assert pack_ops.finish_scan(words, total) == \
+            jpack_ops.finish_scan(words, total)

@@ -20,6 +20,8 @@ def _run(code: str, env=None) -> str:
 
 @pytest.mark.parametrize("module", ["jpeg_tpu_torch",
                                     "jpeg_tpu_torch.pipelines.fast",
+                                    "jpeg_tpu_torch.pipelines.encode",
+                                    "jpeg_tpu_torch.utils.guards",
                                     "jpeg_tpu_torch.convert",
                                     "chip_smoke"])
 def test_import_leaves_jax_and_jpeg_tpu_out(module):

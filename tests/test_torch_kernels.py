@@ -10,7 +10,10 @@ kernel it replaces, run in interpret mode on the CPU:
   ``_place_acc_kernel`` (K4), fed with the port's own fields;
 * dynamic tables: A + E against ``front_index(emit_fields=True)`` (K2),
   ``dct_index_segments`` (K9) and ``dct_symbolize_segments`` (K10); F + C
-  + D against ``attach_pack_pf`` (K3) and ``attach_pack_grouped`` (K11).
+  + D against ``attach_pack_pf`` (K3) and ``attach_pack_grouped`` (K11);
+* the 3-scan path: ``kernels.lut.attach`` (F) against ``lut.attach``
+  (K14), ``attach_grouped`` against K18c, and ``kernels.pack.
+  pack_segments`` (C + D) against ``pack.pack_segments`` (K15).
 
 Every comparison is exact equality (integers, or f32 small integers)."""
 import numpy as np
@@ -21,10 +24,14 @@ import jax.numpy as jnp
 
 from jpeg_tpu.kernels import front as jfront
 from jpeg_tpu.kernels import fused as jfused
+from jpeg_tpu.kernels import lut as jlut
+from jpeg_tpu.kernels import pack as jpack
 from jpeg_tpu_torch.kernels import (fused, front, launch_counts,
                                     reset_launch_counts)
+from jpeg_tpu_torch.kernels import lut as lut_port
+from jpeg_tpu_torch.kernels import pack as pack_port
 from jpeg_tpu_torch.ops import color
-from jpeg_tpu_torch.ops.pack import rows_per_segment
+from jpeg_tpu_torch.kernels.pack import rows_per_segment
 from jpeg_tpu_torch.ops.sample import sample_mask, stage1_columns
 from jpeg_tpu_torch.pipelines.fast import FastBatchEncoder, host_constants
 
@@ -316,3 +323,92 @@ def test_dynamic_cpu_wrappers_run_the_plain_twins_and_launch_nothing():
                            b.view(torch.int32) if b.dtype == torch.uint32
                            else b)
     assert launch_counts() == dict.fromkeys(launch_counts(), 0)
+
+
+# -- the 3-scan path: K14 (lut.attach), K18c (attach_grouped), K15 ----------
+
+
+def _scan_fields(seed, quality=None):
+    """The port's A (3-scan order) + E on one 160x96 image: (Y segment
+    [1, 240, 64] coefs, Cb + Cr segments [2, 60, 64], their pf)."""
+    imgs = synthetic_images(seed, 1, 160, 96)
+    c = _consts(quality)
+    x = torch.from_numpy(imgs.reshape(1, 160, 96 * 3))
+    coef = front.front_dct(x, c["m"], c["bias"], c["ql"], c["qc"],
+                           order="scan")
+    cy, cc = coef[:240].view(1, 240, 64), coef[240:].view(2, 60, 64)
+    pf_y, _ = fused.symbolize_fields(cy, 1, layout=color.SCAN_Y)
+    pf_c, _ = fused.symbolize_fields(cc, 1, layout=color.SCAN_CHROMA)
+    return cy, cc, pf_y, pf_c
+
+
+@pytest.mark.parametrize("scan", ["Y", "Cb", "ragged"])
+def test_attach_matches_lut_attach(scan):
+    """K14 ``lut.attach`` -> ``_attach_kernel`` on a scan's slot arrays:
+    the Y scan (240 blocks), the Cb scan (60 blocks: 3840 slots, which
+    jpeg_tpu pads with NULL slots to 4096) and 999 slots (not whole
+    blocks, which the port pads)."""
+    _, _, pf_y, pf_c = _scan_fields(61)
+    pf = {"Y": pf_y[0], "Cb": pf_c[0], "ragged": pf_c.reshape(-1)[:999]}[scan]
+    idx, extra, extra_n = fused.unpack_fields(pf)
+    lut = _consts(None)["lut"]
+    value, nbits = lut_port.attach(lut, idx, extra, extra_n)
+    jv, jn = jlut.attach(jnp.asarray(lut.numpy()), jnp.asarray(idx.numpy()),
+                         jnp.asarray(extra.numpy()),
+                         jnp.asarray(extra_n.numpy()), interpret=True)
+    assert value.dtype == nbits.dtype == torch.int32
+    assert value.shape == nbits.shape == idx.shape
+    np.testing.assert_array_equal(value.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(nbits.numpy(), np.asarray(jn))
+
+
+def test_attach_grouped_matches_lut_attach_grouped():
+    """K18c ``lut.attach_grouped`` with 3 groups, each its own LUT: the
+    Y scans of 3 images and their per-image tables."""
+    imgs = synthetic_images(63, 3, 64, 64)
+    c = _consts(None)
+    x = torch.from_numpy(imgs.reshape(3, 64, 64 * 3))
+    coef = front.front_dct(x, c["m"], c["bias"], c["ql"], c["qc"],
+                           order="scan")
+    cy = coef[:3 * 64].view(3, 64, 64)
+    pf, hist = fused.symbolize_fields(cy, 3, layout=color.SCAN_Y)
+    pf_c, hist = fused.symbolize_fields(coef[3 * 64:].view(6, 16, 64), 3,
+                                        layout=color.SCAN_CHROMA, hist=hist)
+    _, luts = FastBatchEncoder._build_tables_batch(hist.numpy())
+    assert len({luts[g].tobytes() for g in range(3)}) == 3
+    idx, extra, extra_n = fused.unpack_fields(pf.view(3, -1))
+    value, nbits = lut_port.attach_grouped(torch.from_numpy(luts), idx, extra,
+                                           extra_n)
+    jv, jn = jlut.attach_grouped(jnp.asarray(luts), jnp.asarray(idx.numpy()),
+                                 jnp.asarray(extra.numpy()),
+                                 jnp.asarray(extra_n.numpy()), interpret=True)
+    np.testing.assert_array_equal(value.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(nbits.numpy(), np.asarray(jn))
+
+
+@pytest.mark.parametrize("n_segs", [1, 3])
+def test_pack_segments_matches_kernel_pack(n_segs):
+    """K15 ``pack.pack_segments`` -> ``block_windows_t`` ->
+    ``_pack_kernel_t`` + row scatter-add, on the fields of B: one Cb scan
+    (60 blocks), or three Y restart segments of 80 blocks."""
+    cy, cc, _, _ = _scan_fields(65, quality=75)
+    coef = cc[:1] if n_segs == 1 else cy.reshape(3, 80, 64)
+    value, nbits, bits = fused.symbolize_bits(coef, _consts(75)["lut"],
+                                              color.SCAN_CHROMA if n_segs == 1
+                                              else color.SCAN_Y)
+    seg_rows = rows_per_segment(coef.shape[1] * 64)
+    words, totals = pack_port.pack_segments(value, nbits, n_segs, seg_rows)
+    jw, jt = jpack.pack_segments(jnp.asarray(value.view(torch.int32).numpy()),
+                                 jnp.asarray(nbits.numpy().astype(np.int32)),
+                                 n_segs, seg_rows, interpret=True)
+    jw, jt = np.asarray(jw), np.asarray(jt)
+    np.testing.assert_array_equal(totals.numpy(), jt)
+    assert words.shape == jw.shape and words.dtype == torch.uint32
+    for s in range(n_segs):  # the words the stream covers
+        n = (int(jt[s]) + 31) // 32
+        np.testing.assert_array_equal(words.numpy()[s, :n], jw[s, :n])
+    # B's bits, passed in, give the same words
+    again, _ = pack_port.pack_segments(value, nbits, n_segs, seg_rows, bits)
+    assert torch.equal(again.view(torch.int32), words.view(torch.int32))
+    with pytest.raises(ValueError, match="n_segments"):
+        pack_port.pack_segments(value, nbits, n_segs + 1, seg_rows)

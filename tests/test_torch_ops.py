@@ -14,6 +14,7 @@ from jpeg_tpu.kernels import pack as jpack
 from jpeg_tpu.ops import color as jcolor
 from jpeg_tpu.pipelines import fast as jfast
 from jpeg_tpu_torch.kernels import lut
+from jpeg_tpu_torch.kernels import pack as kpack
 from jpeg_tpu_torch.ops import color, dct, pack, symbols
 from jpeg_tpu_torch.pipelines.fast import host_constants
 
@@ -158,7 +159,7 @@ def test_rows_per_segment_matches_jax(slots):
     assert pack.MAX_FIELD_BITS == jops_pack.MAX_FIELD_BITS
     assert pack.max_words_for_slots(slots) == \
         jops_pack.max_words_for_slots(slots)
-    assert pack.rows_per_segment(slots) == jpack.rows_per_segment(slots)
+    assert kpack.rows_per_segment(slots) == jpack.rows_per_segment(slots)
 
 
 def test_bit_length_is_magnitude_class():
