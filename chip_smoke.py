@@ -6,15 +6,18 @@
 Phases, each of which raises (and so exits non-zero) on any failure:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
-   the build of the six CUDA kernels from ``jpeg_tpu_torch/csrc`` and of
-   the port's native host library (g++);
+   the build of the eight CUDA kernels (six sources) from
+   ``jpeg_tpu_torch/csrc`` and of the port's native host library (g++);
 2. every kernel against its plain PyTorch twin on the card, at the shapes
    of a 16x640x640 batch (E with and without the dynamic-sampled mask, F
    with each mode's LUTs), and in the layouts of the 3-scan path: A's
    3-scan order and its gray mode (1920x1280), B and E on the Y and the
    Cb + Cr scans (E adding both into one histogram), F with per-image
-   LUTs, C and D on the 8 Y restart segments of 1920x1088 r17; integer
-   outputs must be exactly equal;
+   LUTs, C and D on the 8 Y restart segments of 1920x1088 r17; B and E in
+   their explicit modes (the f64 path's K13 and K12 counterparts; B with
+   C and D as K13's whole function) and F + C + D over slot arrays (K18b)
+   at the shapes of a 4x1920x1280 f64 batch; integer outputs must be
+   exactly equal;
 3. the main paths, each with the launch counts reset just before its run
    and read just after, every kernel of the path launched:
    a. ``FastBatchEncoder.encode_batch`` on 16x640x640, 4x1920x1280 and
@@ -24,7 +27,14 @@ Phases, each of which raises (and so exits non-zero) on any failure:
       1920x1280 and 1920x1088 with restarts every 17 block rows, and
       ``encode_batch`` of 16x640x640, per Huffman mode; ``encode_region``
       of a 640x640 window of a 1920x1280 frame; ``encode_any`` at
-      1919x1079; ``encode_gray`` at 1920x1280 (fixed and dynamic).
+      1919x1079; ``encode_gray`` at 1920x1280 (fixed and dynamic);
+   c. the f64 exact mode (fixed and dynamic tables): ``FastBatchEncoder``
+      at 16x640x640 and 4x1920x1280 (B or E explicit, F, C, D),
+      ``JpegEncoder.encode`` 3-scan at 1920x1280 and 1920x1088 r17, and
+      ``encode_gray`` at 1920x1280.  Bytes must equal the port's golden
+      encoder's (``jpeg_tpu_torch.golden.encoder``, every image; it has no
+      3-scan restarts and no gray mode) and, at 16x640x640, 1920x1088 r17
+      and for gray, the CPU plain path's.
    The JPEG bytes must equal those of the same call on the CPU (the plain
    twins; a batch compares its first 4 images, since each image's tables
    are its own), the first file of each run must decode with the port's
@@ -38,7 +48,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    image's tables, and each kernel next to its plain twin, its bound and,
    where one PyTorch call computes the same function, that call (plus F,
    and C + D, at the shapes of a 1920x1280 3-scan Y scan: the ports of
-   K14 and K15).
+   K14 and K15), and each f64 case's call time, device time by kernel,
+   idle share and the share of the device time spent in the f64
+   analysis (the eager torch ops before the kernels).
 
 The line before the last is the ``kernels`` JSON record; the last line is
 the JSON verdict.  Inputs are synthetic images (smooth gradients plus hard
@@ -61,11 +73,13 @@ import torch
 from jpeg_tpu_torch import (Area, EncodeConfig, FastBatchEncoder, JpegEncoder,
                             _build, encode_gray, native)
 from jpeg_tpu_torch.golden import decoder as golden
+from jpeg_tpu_torch.golden import encoder as golden_enc
 from jpeg_tpu_torch.kernels import (fused, front, launch_counts,
                                     reset_launch_counts)
 from jpeg_tpu_torch.kernels import pack as kpack
 from jpeg_tpu_torch.ops.color import SCAN_CHROMA, SCAN_Y
 from jpeg_tpu_torch.ops.dct import set_exact_matmul
+from jpeg_tpu_torch.pipelines.fast import analyze_zz
 
 # (batch, height, width, restart_interval_mcu_rows)
 GEOMETRIES = [(16, 640, 640, 0), (4, 1280, 1920, 0), (2, 1088, 1920, 17)]
@@ -78,6 +92,19 @@ SCAN_GEOMETRIES = [(640, 640, 0), (1280, 1920, 0), (1088, 1920, 17)]
 FIXED_PATH = ("front_dct", "symbolize_bits", "segment_offsets", "place")
 DYNAMIC_PATH = ("front_dct", "symbolize_fields", "attach_pf",
                 "segment_offsets", "place")
+# the f64 exact mode: FastBatchEncoder (batch, height, width); JpegEncoder
+# 3-scan (height, width, restart rows); and the paths' kernels
+F64_GEOMETRIES = [(16, 640, 640), (4, 1280, 1920)]
+F64_SCAN_GEOMETRIES = [(1280, 1920, 0), (1088, 1920, 17)]
+F64_FIXED_PATH = ("symbolize_bits_explicit", "segment_offsets", "place")
+F64_DYNAMIC_PATH = ("symbolize_fields_explicit", "attach_pf",
+                    "segment_offsets", "place")
+F64_SCAN_PATHS = {"fixed": ("symbolize_bits", "segment_offsets", "place"),
+                  "dynamic": ("symbolize_fields", "attach_pf",
+                              "segment_offsets", "place")}
+# the CUDA kernels by their names in a profile, and the copies
+OWN_KERNELS = ("front_dct", "symbolize_bits_kernel", "segment_offsets",
+               "place_kernel", "symbolize_fields_kernel", "attach_pf")
 
 # kernel -> (source, the TPU kernels it replaces: file:line of pallas_call)
 KERNEL_INFO = {
@@ -89,6 +116,9 @@ KERNEL_INFO = {
                        "jpeg_tpu/kernels/fused.py:576 (K6); symbolize + "
                        "attach of front.py:823 (K1) and fused.py:509 (K6r); "
                        "lut.py:120 (K14) on the fixed 3-scan path"),
+    "symbolize_bits_explicit": ("jpeg_tpu_torch/csrc/symbolize_bits.cu",
+                                "jpeg_tpu/kernels/fused.py:1459 (K13, "
+                                "with C and D after it)"),
     "segment_offsets": ("jpeg_tpu_torch/csrc/segment_offsets.cu",
                         "jpeg_tpu/kernels/fused.py:1388 (K4), fused.py:1358 "
                         "(K4r); offsets of front.py:823 (K1), fused.py:642 "
@@ -100,10 +130,19 @@ KERNEL_INFO = {
     "symbolize_fields": ("jpeg_tpu_torch/csrc/symbolize_fields.cu",
                          "jpeg_tpu/kernels/front.py:916 (K2, after its "
                          "front), fused.py:800 (K9), fused.py:829 (K10)"),
+    "symbolize_fields_explicit": ("jpeg_tpu_torch/csrc/symbolize_fields.cu",
+                                  "jpeg_tpu/kernels/fused.py:876 (K12) + "
+                                  "pipelines/fast.py:108 (hist_1024_t)"),
     "attach_pf": ("jpeg_tpu_torch/csrc/attach_pf.cu",
                   "jpeg_tpu/kernels/fused.py:642 (K3, before its place), "
                   "fused.py:918 (K11), lut.py:120 (K14), lut.py:155 "
                   "(K18c)"),
+    # K18b has no kernel of its own, and no caller in jpeg_tpu or on a
+    # path of the port: launches stay 0
+    "attach_pack_segments": ("jpeg_tpu_torch/csrc/attach_pf.cu + "
+                             "segment_offsets.cu + place.cu (F + C + D, "
+                             "kernels/fused.py::attach_pack_segments)",
+                             "jpeg_tpu/kernels/fused.py:1509 (K18b)"),
 }
 
 # NVIDIA's H100 SXM data sheet: HBM3 rate, FP32 rate outside the tensor
@@ -227,6 +266,32 @@ def bounds(B: int, H: int, W: int, n_segs: int, seg_words: int):
     return out
 
 
+def explicit_bounds(S: int, nblk: int, seg_words: int, n_images: int):
+    """bound_ms, bound_by of the f64 path's kernels and functions over S
+    segments of nblk blocks (all bound by bytes: no arithmetic to speak
+    of).  Inputs: zz int16, dc_diff and is_luma int32 per block, the LUT;
+    K18b reads three int32 slot arrays; K13 and K18b write the words and
+    totals."""
+    blocks, slots = S * nblk, S * nblk * 64
+    words = S * seg_words * 4 + S * 4
+    nbytes = {
+        "symbolize_bits_explicit": slots * 2 + blocks * 8 + 4096
+        + slots * 5 + blocks * 4,
+        "symbolize_fields_explicit": slots * 2 + blocks * 8 + slots * 4
+        + n_images * 4096,
+        "attach_pack_segments": slots * 12 + 4096 + words,
+        "K13": slots * 2 + blocks * 8 + 4096 + words,
+    }
+    return {k: (v / HBM_BYTES_PER_S * 1e3, "bytes")
+            for k, v in nbytes.items()}
+
+
+def plain_pack(value, nbits, bits, seg_rows: int):
+    """C then D as their plain twins (the composites' plain versions)."""
+    offs, totals = fused.segment_offsets_plain(bits)
+    return fused.place_plain(value, nbits, offs, seg_rows * 128), totals
+
+
 def dynamic_split(e: FastBatchEncoder, xd: torch.Tensor,
                   runs: int) -> dict[str, float]:
     """Medians of the parts of one dynamic ``encode_batch``, each ended by
@@ -340,6 +405,14 @@ def check_jpeg_case(case: dict, files: list[bytes], ref: list[bytes],
     if same != n:
         raise AssertionError(f"{case['label']}: card and CPU bytes differ "
                              f"({same}/{n} equal)")
+    return (f"{case['label']}: {same}/{n} files byte-identical to the CPU "
+            f"plain path, " + check_files(case, files, fixed_dht))
+
+
+def check_files(case: dict, files: list[bytes],
+                fixed_dht: list[bytes]) -> str:
+    """The tables, restart markers and golden decode of a run's files;
+    returns a summary."""
     if "fixed" not in case["label"] and any(
             dht_segments(f) == fixed_dht for f in files):
         raise AssertionError(f"{case['label']}: a file carries the fixed "
@@ -362,9 +435,101 @@ def check_jpeg_case(case: dict, files: list[bytes], ref: list[bytes],
                              f"<= {MIN_PSNR_DB} dB")
     markers = (f"; (DRI, RSTn) per file {case['restarts']}"
                if case["restarts"] else "")
-    return (f"{case['label']}: {same}/{n} files byte-identical to the CPU "
-            f"plain path, {sum(map(len, files))} bytes, golden decode of "
-            f"file 0 PSNR {quality_db:.2f} dB{markers}")
+    return (f"{sum(map(len, files))} bytes, golden decode of file 0 PSNR "
+            f"{quality_db:.2f} dB{markers}")
+
+
+def f64_cases(rng: np.random.Generator, scale: int = 1) -> list[dict]:
+    """The f64 exact-mode runs of phase 3c, at 1/scale of the full sizes.
+
+    Each case: ``label``; ``kernels`` its path must launch; ``make(dev)``
+    -> a zero-argument call of the entry point on input already on
+    ``dev`` (for phase 4's timings too), giving the files; ``refs``: (what,
+    files) thunks the files (or their first ones) must equal;
+    ``original``: the pixels file 0 must decode to; ``restarts``: (DRI,
+    RSTn) markers per file, or None.
+    """
+    def s(n):
+        return n // scale
+    cases = []
+    for b, h, w in F64_GEOMETRIES:
+        batch = synthetic_batch(rng, b, s(h), s(w))
+        for mode in ("fixed", "dynamic"):
+            kw = dict(scan_layout="interleaved", huffman=mode)
+            cfg = EncodeConfig(dtype="float64", **kw)
+
+            def make(dev, cfg=cfg, batch=batch):
+                enc = FastBatchEncoder(batch.shape[1], batch.shape[2], cfg,
+                                       device=dev)
+                x = torch.from_numpy(batch).to(dev)
+                return lambda: enc.encode_batch(x)
+            refs = [("the golden encoder", lambda batch=batch, kw=kw: [
+                golden_enc.encode(img, **kw) for img in batch])]
+            if (b, h, w) == F64_GEOMETRIES[0]:
+                n = b if mode == "fixed" else CPU_IMAGES_DYNAMIC
+                refs.append((f"the CPU plain path (first {n})",
+                             lambda make=make, batch=batch, n=n:
+                             make("cpu", batch=batch[:n])()))
+            cases.append(dict(
+                label=f"f64 FastBatchEncoder.encode_batch {mode} "
+                      f"{b}x{s(h)}x{s(w)}",
+                kernels=(F64_FIXED_PATH if mode == "fixed"
+                         else F64_DYNAMIC_PATH),
+                make=make, refs=refs, original=batch[0], restarts=None))
+    for h, w, rows in F64_SCAN_GEOMETRIES:
+        img = synthetic_batch(rng, 1, s(h), s(w))[0]
+        for mode in ("fixed", "dynamic"):
+            cfg = EncodeConfig(dtype="float64", huffman=mode,
+                               restart_interval_mcu_rows=rows)
+
+            def make(dev, cfg=cfg, img=img):
+                enc = JpegEncoder(cfg, device=dev)
+                x = torch.from_numpy(img).to(dev)
+                return lambda: [enc.encode(x)]
+            if rows:  # the golden encoder has no 3-scan restarts
+                y_segs, c_segs = s(h) // 8 // rows, s(h) // 16 // rows
+                restarts = ((y_segs > 1) + 2 * (c_segs > 1),
+                            (y_segs - 1) + 2 * (c_segs - 1))
+                refs = [("the CPU plain path",
+                         lambda make=make: make("cpu")())]
+            else:
+                restarts = None
+                refs = [("the golden encoder", lambda img=img, mode=mode: [
+                    golden_enc.encode(img, huffman=mode)])]
+            cases.append(dict(
+                label=f"f64 JpegEncoder.encode 3scan {mode} {s(w)}x{s(h)} "
+                      f"restart_rows={rows}",
+                kernels=F64_SCAN_PATHS[mode], make=make, refs=refs,
+                original=img, restarts=restarts))
+    plane = np.ascontiguousarray(
+        synthetic_batch(rng, 1, s(1280), s(1920))[0, ..., 1])
+    for mode in ("fixed", "dynamic"):
+        cfg = EncodeConfig(dtype="float64", huffman=mode)
+
+        def make(dev, cfg=cfg):
+            x = torch.from_numpy(plane).to(dev)
+            return lambda: [encode_gray(x, cfg, device=dev)]
+        cases.append(dict(
+            label=f"f64 encode_gray {mode} {s(1920)}x{s(1280)}",
+            kernels=F64_SCAN_PATHS[mode], make=make,
+            refs=[("the CPU plain path", lambda make=make: make("cpu")())],
+            original=plane, restarts=None))
+    return cases
+
+
+def check_f64_case(case: dict, files: list[bytes], fixed_dht) -> str:
+    """Hold one phase-3c run against its references and the decoder;
+    returns a summary line."""
+    parts = []
+    for what, ref in case["refs"]:
+        want = ref()
+        same = sum(f == g for f, g in zip(files, want))
+        if same != len(want):
+            raise AssertionError(f"{case['label']}: bytes differ from "
+                                 f"{what} ({same}/{len(want)} equal)")
+        parts.append(f"{same}/{len(want)} files byte-identical to {what}")
+    return (f"{case['label']}: " + ", ".join(parts) + ", "
+            + check_files(case, files, fixed_dht))
 
 
 def device_profile(fn, runs: int) -> tuple[dict[str, float], float]:
@@ -469,8 +634,9 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     set_exact_matmul()
     _build.entry("front_dct")
-    print(f"build: {len(_build.SIGNATURES)} kernels (nvcc, sm_90a) in "
-          f"{_build.build_seconds:.1f} s")
+    print(f"build: {len(_build.SIGNATURES)} kernels from "
+          f"{len(_build.SOURCES)} sources (nvcc, sm_90a, one process per "
+          f"source) in {_build.build_seconds:.1f} s")
     native.load()
     print(f"build: native host library (g++) in "
           f"{native.build_seconds:.1f} s; host CPUs: "
@@ -578,6 +744,36 @@ def main() -> int:
              lambda: fused.place_plain(fields_r[0], fields_r[1], offs_r[0],
                                        words_r))],
     }
+    # the f64 path's kernels at the shapes of a 4x1920x1280 batch: the
+    # exact analysis (torch ops) gives zz, dc_diff and is_luma; the inputs
+    # come from a third generator
+    rng3 = np.random.default_rng(args.seed + 2)
+    b4, h4, w4 = F64_GEOMETRIES[1]
+    x4 = torch.from_numpy(synthetic_batch(rng3, b4, h4, w4)).to(dev)
+    seq, dcd, isl = analyze_zz(x4, enc._luma_q, enc._chroma_q, w4 // 16,
+                               h4 // 16, 1)
+    del x4
+    s4, nblk4 = seq.shape[0], seq.shape[1]
+    seg_rows4 = kpack.rows_per_segment(nblk4 * 64)
+    slots4 = fused.unpack_fields(
+        fused.symbolize_segments_plain(seq, dcd, isl, s4, b4)[0])
+    lut1 = enc._lut[None].contiguous()
+    calls["symbolize_bits_explicit"] = (
+        lambda: fused.symbolize_bits_explicit(seq, dcd, isl, enc._lut),
+        lambda: fused.symbolize_bits_explicit_plain(seq, dcd, isl, enc._lut))
+    calls["symbolize_fields_explicit"] = (
+        lambda: fused.symbolize_segments(seq, dcd, isl, s4, b4),
+        lambda: fused.symbolize_segments_plain(seq, dcd, isl, s4, b4))
+    calls["attach_pack_segments"] = (
+        lambda: fused.attach_pack_segments(enc._lut, *slots4, s4, seg_rows4),
+        lambda: plain_pack(*fused.attach_pf_plain(fused.pack_fields(
+            *slots4), lut1), seg_rows4))
+    k13 = (lambda: fused.analyze_attach_pack_segments(
+               enc._lut, seq, dcd, isl, s4, seg_rows4),
+           lambda: plain_pack(*fused.symbolize_bits_explicit_plain(
+               seq, dcd, isl, enc._lut), seg_rows4))
+    more_checks["symbolize_bits_explicit"] = [
+        ("with C and D: K13's analyze_attach_pack_segments", *k13)]
     # one PyTorch call computing the same function, where there is one:
     # C's offsets are a cumsum; E's histogram is one bincount (the image
     # offset folded into the index)
@@ -679,6 +875,24 @@ def main() -> int:
             launches[name] += n
         print("  " + check_jpeg_case(case, files, case["ref"](), fixed_dht))
 
+    # -- phase 3c: the f64 exact mode, each call its own path ---------------
+    f64_runs = []
+    for case in f64_cases(rng3):
+        fn = case["make"](dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        files = fn()
+        counts = launch_counts()
+        print(f"main path {case['label']}: launches {json.dumps(counts)}")
+        for name in case["kernels"]:
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the "
+                                     f"path {case['label']}")
+        for name, n in counts.items():
+            launches[name] += n
+        print("  " + check_f64_case(case, files, fixed_dht))
+        f64_runs.append((case["label"], fn))
+
     # -- phase 4: timings ----------------------------------------------------
     for mode in MODES:
         for (b, h, w, r), bt, e in zip(GEOMETRIES, batches, encoders[mode]):
@@ -739,6 +953,26 @@ def main() -> int:
     print(f"timing K.2 builds + LUT of one image's 4 tables (host, the "
           f"fixed cost of a dynamic encode) on [{card}]: {k2_ms:.4f} ms; "
           f"median of {args.runs}")
+    # the f64 cases: call time, device time by kernel, idle share, and the
+    # share of the device time in the f64 analysis (every device op but
+    # the port's kernels and the copies)
+    for label, fn in f64_runs:
+        call_ms = host_ms(fn, args.runs)
+        per_call, idle = device_profile(fn, args.runs)
+        total = sum(per_call.values())
+        own = sum(v for k, v in per_call.items()
+                  if any(n in k for n in OWN_KERNELS))
+        copies = sum(v for k, v in per_call.items()
+                     if "Memcpy" in k or "Memset" in k)
+        print(f"timing {label} on [{card}]: {call_ms:.4f} ms; median of "
+              f"{args.runs}")
+        print(f"  device µs per call (torch.profiler, {args.runs} calls): "
+              f"total {total:.2f}, kernels {own:.2f}, copies and memsets "
+              f"{copies:.2f}, f64 analysis {total - own - copies:.2f} "
+              f"(share {(total - own - copies) / total:.4f}); device idle "
+              f"share {idle:.4f}; by name: " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in sorted(
+                      per_call.items(), key=lambda kv: -kv[1])[:12]))
     x_big = torch.from_numpy(synthetic_batch(rng2, 1, 1280, 1920)).to(dev)
     scan_kernel_times(x_big.reshape(1, 1280, 1920 * 3), consts, enc._lut,
                       card, args.runs)
@@ -749,12 +983,21 @@ def main() -> int:
                           for f in (plain, kernel, kernel, plain))
         lib = cuda_ms(library[name], args.runs) if name in library else None
         times[name] = ((k0 + k1) / 2, (p0 + p1) / 2, lib)
-        print(f"timing kernel {name} at {B}x{H}x{W} on [{card}]: "
+        at = (f"{b4}x{h4}x{w4} f64" if name in explicit_bounds(1, 1, 1, 1)
+              else f"{B}x{H}x{W}")
+        print(f"timing kernel {name} at {at} on [{card}]: "
               f"{times[name][0]:.4f} ms ({k0:.4f}, {k1:.4f}), plain twin "
               f"{times[name][1]:.4f} ms ({p0:.4f}, {p1:.4f})"
               + (f", one PyTorch call {lib:.4f} ms" if lib is not None
                  else ""))
+    p0, k0, k1, p1 = (cuda_ms(f, args.runs)
+                      for f in (k13[1], k13[0], k13[0], k13[1]))
     bound = bounds(B, H, W, enc.n_segs, seg_words)
+    bound.update(explicit_bounds(s4, nblk4, seg_rows4 * 128, b4))
+    print(f"timing K13 (B explicit + C + D: analyze_attach_pack_segments) "
+          f"at {b4}x{h4}x{w4} f64 on [{card}]: {(k0 + k1) / 2:.4f} ms "
+          f"({k0:.4f}, {k1:.4f}), plain {(p0 + p1) / 2:.4f} ms ({p0:.4f}, "
+          f"{p1:.4f}), bound {bound['K13'][0]:.5f} ms (bytes)")
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],

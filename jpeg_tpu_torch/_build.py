@@ -1,8 +1,9 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
-Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process, all
-started together, into ``_build/<name>-<hash>.so`` (a shared library with
-a plain C interface; no PyTorch headers, so a build takes seconds).  The
+Each ``csrc/<source>.cu`` is compiled by its own ``nvcc`` process, all
+started together, into ``_build/<source>-<hash>.so`` (a shared library
+with a plain C interface; no PyTorch headers, so a build takes seconds).
+A source may hold several kernels' entry points (``SIGNATURES``).  The
 hash covers the source, the ``csrc/*.cuh`` headers it includes and the
 flags, so an edited source or header rebuilds.
 
@@ -28,19 +29,29 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
-# C entry point of each source: (function, argument types).  Every entry
-# returns the launch's cudaGetLastError() as an int.
+# kernel -> (its source in csrc/, its C entry point, argument types).
+# Every entry returns the launch's cudaGetLastError() as an int.
 SIGNATURES = {
-    "front_dct": ("jt_front_dct", [_VOID] * 6 + [_INT] * 4 + [_VOID]),
-    "symbolize_bits": ("jt_symbolize_bits",
+    "front_dct": ("front_dct", "jt_front_dct",
+                  [_VOID] * 6 + [_INT] * 4 + [_VOID]),
+    "symbolize_bits": ("symbolize_bits", "jt_symbolize_bits",
                        [_VOID] * 5 + [_INT] * 4 + [_VOID]),
-    "segment_offsets": ("jt_segment_offsets",
+    "symbolize_bits_explicit": ("symbolize_bits",
+                                "jt_symbolize_bits_explicit",
+                                [_VOID] * 7 + [_INT] * 2 + [_VOID]),
+    "segment_offsets": ("segment_offsets", "jt_segment_offsets",
                         [_VOID] * 3 + [_INT] * 2 + [_VOID]),
-    "place": ("jt_place", [_VOID] * 4 + [_INT] * 3 + [_VOID]),
-    "symbolize_fields": ("jt_symbolize_fields",
+    "place": ("place", "jt_place", [_VOID] * 4 + [_INT] * 3 + [_VOID]),
+    "symbolize_fields": ("symbolize_fields", "jt_symbolize_fields",
                          [_VOID] * 4 + [_INT] * 6 + [_VOID]),
-    "attach_pf": ("jt_attach_pf", [_VOID] * 5 + [_INT] * 3 + [_VOID]),
+    "symbolize_fields_explicit": ("symbolize_fields",
+                                  "jt_symbolize_fields_explicit",
+                                  [_VOID] * 5 + [_INT] * 3 + [_VOID]),
+    "attach_pf": ("attach_pf", "jt_attach_pf",
+                  [_VOID] * 5 + [_INT] * 3 + [_VOID]),
 }
+# the sources to build, in SIGNATURES order
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # where the toolkit puts it off PATH
 
@@ -62,10 +73,10 @@ def _nvcc() -> str:
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
-def sources(name: str) -> list[str]:
-    """Kernel ``name``'s ``.cu`` file and the local headers it includes
-    (directly or through another local header), in include order."""
-    out = [os.path.join(SRC_DIR, name + ".cu")]
+def sources(source: str) -> list[str]:
+    """``csrc/<source>.cu`` and the local headers it includes (directly or
+    through another local header), in include order."""
+    out = [os.path.join(SRC_DIR, source + ".cu")]
     for path in out:
         with open(path, "rb") as f:
             for inc in _INCLUDE.findall(f.read()):
@@ -75,15 +86,15 @@ def sources(name: str) -> list[str]:
     return out
 
 
-def _target(name: str) -> tuple[str, str]:
-    srcs = sources(name)
+def _target(source: str) -> tuple[str, str]:
+    srcs = sources(source)
     h = hashlib.sha256()
     for path in srcs:
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    src = srcs[0]
-    return src, os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    return srcs[0], os.path.join(BUILD_DIR,
+                                 f"{source}-{h.hexdigest()[:16]}.so")
 
 
 def _build_all() -> None:
@@ -92,16 +103,16 @@ def _build_all() -> None:
     t0 = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = []
-    for name in SIGNATURES:
-        src, so = _target(name)
+    for source in SOURCES:
+        src, so = _target(source)
         if not os.path.exists(so):
             tmp = f"{so}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT)
-            jobs.append((name, proc, tmp, so, cmd))
+            jobs.append((proc, tmp, so, cmd))
     failed = []
-    for name, proc, tmp, so, cmd in jobs:
+    for proc, tmp, so, cmd in jobs:
         out, _ = proc.communicate()
         if proc.returncode:
             failed.append(f"{' '.join(cmd)}\n{out.decode(errors='replace')}")
@@ -109,11 +120,11 @@ def _build_all() -> None:
             os.replace(tmp, so)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    for name, (fn, argtypes) in SIGNATURES.items():
-        lib = ctypes.CDLL(_target(name)[1])
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = _INT
-        _libs[name] = lib
+    libs = {source: ctypes.CDLL(_target(source)[1]) for source in SOURCES}
+    for source, fn, argtypes in SIGNATURES.values():
+        getattr(libs[source], fn).argtypes = argtypes
+        getattr(libs[source], fn).restype = _INT
+    _libs.update(libs)
     build_seconds = time.perf_counter() - t0
 
 
@@ -122,5 +133,5 @@ def entry(name: str):
     with _lock:
         if not _libs:
             _build_all()
-    fn, _ = SIGNATURES[name]
-    return getattr(_libs[name], fn)
+    source, fn, _ = SIGNATURES[name]
+    return getattr(_libs[source], fn)

@@ -13,6 +13,12 @@
 // same-component DC straight from the input by index (no carry crosses
 // blocks); the "last nonzero AC before me" that drives runs, ZRL and EOB
 // is one warp max-scan.
+//
+// The explicit mode (block_slots_explicit) takes each block's DC
+// difference and luma flag from arrays instead of deriving them from a
+// McuLayout, as jpeg_tpu's _symbolize does with its dcd and isl inputs
+// (kernels/fused.py:187-240): is_luma is 1 for luma, 0 for chroma and -1
+// for a padding block, whose every slot is NULL, DC included.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -71,28 +77,12 @@ struct SlotPair {
   int idx0, ex0, en0, idx1, ex1, en1;
 };
 
-// Symbolize block gb of [*, 64] int16 zig-zag coefficients; b is its index
-// within its segment (the DC chains restart at b = 0), l the segment's
-// block pattern.  All 32 lanes of the warp must call it together.
-__device__ __forceinline__ SlotPair block_slots(const int16_t* coef,
-                                                long long gb, int b,
-                                                int lane, McuLayout l) {
+// The fields of a lane's two slots from their values: v0 (slot 2*lane;
+// lane 0 holds the DC difference) and v1 (slot 2*lane + 1) of a block
+// whose luma flag is luma.  All 32 lanes of the warp must call it together.
+__device__ __forceinline__ SlotPair slots_of(int v0, int v1, int lane,
+                                             int luma) {
   const unsigned full = 0xffffffffu;
-  const int pos = b % l.period;
-  const int luma = pos < l.y_per_mcu;
-  const uint32_t pair =
-      reinterpret_cast<const uint32_t*>(coef + gb * 64)[lane];
-  int v0 = (int)(int16_t)(pair & 0xffffu);   // slot 2*lane
-  int v1 = (int)(int16_t)(pair >> 16);       // slot 2*lane + 1
-  if (lane == 0) {
-    // previous same-component DC: the last Y of the previous MCU for its
-    // first Y block, the previous Y inside an MCU, one MCU back for chroma
-    const int d = pos < l.y_per_mcu
-                      ? (pos == 0 ? l.period - l.y_per_mcu + 1 : 1)
-                      : l.period;
-    const int prev_dc = b >= d ? (int)coef[(gb - d) * 64] : 0;
-    v0 -= prev_dc;
-  }
   const int k0 = 2 * lane, k1 = k0 + 1;
   const int nz0 = lane > 0 && v0 != 0;
   const int nz1 = v1 != 0;
@@ -112,6 +102,46 @@ __device__ __forceinline__ SlotPair block_slots(const int16_t* coef,
   slot_fields(k0, v0, excl, last, luma, &s.idx0, &s.ex0, &s.en0);
   slot_fields(k1, v1, prev1, last, luma, &s.idx1, &s.ex1, &s.en1);
   return s;
+}
+
+// Symbolize block gb of [*, 64] int16 zig-zag coefficients; b is its index
+// within its segment (the DC chains restart at b = 0), l the segment's
+// block pattern.  All 32 lanes of the warp must call it together.
+__device__ __forceinline__ SlotPair block_slots(const int16_t* coef,
+                                                long long gb, int b,
+                                                int lane, McuLayout l) {
+  const int pos = b % l.period;
+  const int luma = pos < l.y_per_mcu;
+  const uint32_t pair =
+      reinterpret_cast<const uint32_t*>(coef + gb * 64)[lane];
+  int v0 = (int)(int16_t)(pair & 0xffffu);   // slot 2*lane
+  const int v1 = (int)(int16_t)(pair >> 16); // slot 2*lane + 1
+  if (lane == 0) {
+    // previous same-component DC: the last Y of the previous MCU for its
+    // first Y block, the previous Y inside an MCU, one MCU back for chroma
+    const int d = pos < l.y_per_mcu
+                      ? (pos == 0 ? l.period - l.y_per_mcu + 1 : 1)
+                      : l.period;
+    const int prev_dc = b >= d ? (int)coef[(gb - d) * 64] : 0;
+    v0 -= prev_dc;
+  }
+  return slots_of(v0, v1, lane, luma);
+}
+
+// The explicit mode: block gb's DC difference is dc_diff[gb] (its DC slot
+// in coef is ignored) and its luma flag is_luma[gb].  A padding block
+// (flag -1) gives NULL slots; the flag is the same for the whole warp, so
+// the early return keeps the warp together.
+__device__ __forceinline__ SlotPair block_slots_explicit(
+    const int16_t* coef, const int* dc_diff, const int* is_luma,
+    long long gb, int lane) {
+  const int flag = is_luma[gb];
+  if (flag < 0) return SlotPair{kNullIndex, 0, 0, kNullIndex, 0, 0};
+  const uint32_t pair =
+      reinterpret_cast<const uint32_t*>(coef + gb * 64)[lane];
+  const int v0 = lane == 0 ? dc_diff[gb] : (int)(int16_t)(pair & 0xffffu);
+  const int v1 = (int)(int16_t)(pair >> 16);
+  return slots_of(v0, v1, lane, flag == 1);
 }
 
 }  // namespace jt

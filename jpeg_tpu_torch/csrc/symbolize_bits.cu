@@ -13,6 +13,13 @@
 // replaces the LUT attach of jpeg_tpu's 3-scan path, kernels/lut.py::attach
 // (K14), whose slot fields it computes itself.
 //
+// The explicit entry jt_symbolize_bits_explicit takes each block's DC
+// difference and luma flag (1, 0, or -1 for a padding block: NULL slots)
+// from int32 [S, nblk] arrays, as jpeg_tpu's f64 fixed-table path hands
+// them to kernels/fused.py::analyze_attach_pack_segments (K13:
+// _symbolize_attach_kernel, then K4); with C and D after it, it replaces
+// K13.  The coefficients' DC slot is ignored there.
+//
 // What bounds it on an H100: memory traffic (2 bytes in, 5 bytes out per
 // slot) and the serial dependence of each slot on the last nonzero slot
 // before it.  Design: one warp per 8x8 block, two slots per lane; the slot
@@ -28,8 +35,13 @@ namespace {
 
 constexpr int kWarps = 8;
 
+// kExplicit: DC differences and luma flags from dc_diff / is_luma (see
+// block_slots_explicit); else from the block pattern layout.
+template <bool kExplicit>
 __global__ void __launch_bounds__(kWarps * 32)
 symbolize_bits_kernel(const int16_t* __restrict__ coef,
+                      const int* __restrict__ dc_diff,
+                      const int* __restrict__ is_luma,
                       const int* __restrict__ lut, uint32_t* __restrict__ value,
                       uint8_t* __restrict__ nbits, int* __restrict__ bits,
                       int nblk, long long total_blocks, jt::McuLayout layout) {
@@ -42,8 +54,11 @@ symbolize_bits_kernel(const int16_t* __restrict__ coef,
   const unsigned full = 0xffffffffu;
   for (long long gb = (long long)blockIdx.x * kWarps + warp;
        gb < total_blocks; gb += (long long)gridDim.x * kWarps) {
-    const int b = (int)(gb % nblk);  // block index within its segment
-    const jt::SlotPair s = jt::block_slots(coef, gb, b, lane, layout);
+    const jt::SlotPair s =
+        kExplicit
+            ? jt::block_slots_explicit(coef, dc_diff, is_luma, gb, lane)
+            // b: the block's index within its segment
+            : jt::block_slots(coef, gb, (int)(gb % nblk), lane, layout);
     const int idx0 = s.idx0, ex0 = s.ex0, en0 = s.en0;
     const int idx1 = s.idx1, ex1 = s.ex1, en1 = s.en1;
     const int e0 = s_lut[idx0], e1 = s_lut[idx1];
@@ -62,6 +77,26 @@ symbolize_bits_kernel(const int16_t* __restrict__ coef,
   }
 }
 
+template <bool kExplicit>
+int launch(const void* coef, const void* dc_diff, const void* is_luma,
+           const void* lut, void* value, void* nbits, void* bits,
+           int n_segs, int nblk, jt::McuLayout layout, void* stream) {
+  const long long total = (long long)n_segs * nblk;
+  if (total == 0) return (int)cudaGetLastError();
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long need = (total + kWarps - 1) / kWarps;
+  const long long cap = 8LL * (sms > 0 ? sms : 1);
+  const int grid = (int)(need < cap ? need : cap);
+  symbolize_bits_kernel<kExplicit>
+      <<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
+          (const int16_t*)coef, (const int*)dc_diff, (const int*)is_luma,
+          (const int*)lut, (uint32_t*)value, (uint8_t*)nbits, (int*)bits,
+          nblk, total, layout);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int jt_symbolize_bits(const void* coef, const void* lut,
@@ -71,16 +106,16 @@ extern "C" int jt_symbolize_bits(const void* coef, const void* lut,
   const jt::McuLayout layout{period, y_per_mcu};
   if (!jt::layout_ok(layout) || nblk % period)
     return (int)cudaErrorInvalidValue;
-  const long long total = (long long)n_segs * nblk;
-  if (total == 0) return (int)cudaGetLastError();
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long need = (total + kWarps - 1) / kWarps;
-  const long long cap = 8LL * (sms > 0 ? sms : 1);
-  const int grid = (int)(need < cap ? need : cap);
-  symbolize_bits_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)coef, (const int*)lut, (uint32_t*)value,
-      (uint8_t*)nbits, (int*)bits, nblk, total, layout);
-  return (int)cudaGetLastError();
+  return launch<false>(coef, nullptr, nullptr, lut, value, nbits, bits,
+                       n_segs, nblk, layout, stream);
+}
+
+extern "C" int jt_symbolize_bits_explicit(const void* coef,
+                                          const void* dc_diff,
+                                          const void* is_luma,
+                                          const void* lut, void* value,
+                                          void* nbits, void* bits, int n_segs,
+                                          int nblk, void* stream) {
+  return launch<true>(coef, dc_diff, is_luma, lut, value, nbits, bits,
+                      n_segs, nblk, jt::McuLayout{1, 1}, stream);
 }

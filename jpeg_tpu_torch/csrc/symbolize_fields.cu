@@ -18,6 +18,13 @@
 //        counted: that bin is dropped downstream, and counting it would
 //        put most of the shared-memory atomics on one address.
 //
+// The explicit entry jt_symbolize_fields_explicit takes each block's DC
+// difference and luma flag (1, 0, or -1 for a padding block: NULL slots)
+// from int32 [S, nblk] arrays (the coefficients' DC slot is ignored), has
+// no mask and always zeroes hist first: it replaces jpeg_tpu's
+// kernels/fused.py::symbolize_segments (K12, _symbolize_idx_kernel) and
+// the hist_1024_t after it on the f64 dynamic-table path.
+//
 // What bounds it on an H100: memory traffic (2 bytes in, 4 bytes out per
 // slot).  Design: one warp per 8x8 block, two slots per lane, the slot
 // logic of block_slots.cuh (shared with kernel B).  Every CTA covers
@@ -36,8 +43,13 @@ namespace {
 
 constexpr int kWarps = 8;
 
+// kExplicit: DC differences and luma flags from dc_diff / is_luma (see
+// block_slots_explicit); else from the block pattern layout.
+template <bool kExplicit>
 __global__ void __launch_bounds__(kWarps * 32)
 symbolize_fields_kernel(const int16_t* __restrict__ coef,
+                        const int* __restrict__ dc_diff,
+                        const int* __restrict__ is_luma,
                         const uint8_t* __restrict__ mask,
                         int* __restrict__ pf, int* __restrict__ hist,
                         int nblk, long long blocks_per_image,
@@ -52,8 +64,11 @@ symbolize_fields_kernel(const int16_t* __restrict__ coef,
   for (long long k = (long long)blockIdx.x * kWarps + warp;
        k < blocks_per_image; k += (long long)gridDim.x * kWarps) {
     const long long gb = base + k;
-    const int b = (int)(k % nblk);  // block index within its segment
-    const jt::SlotPair s = jt::block_slots(coef, gb, b, lane, layout);
+    const jt::SlotPair s =
+        kExplicit
+            ? jt::block_slots_explicit(coef, dc_diff, is_luma, gb, lane)
+            // b: the block's index within its segment
+            : jt::block_slots(coef, gb, (int)(k % nblk), lane, layout);
     const int p0 = s.idx0 | (s.en0 << 10) | (s.ex0 << 14);
     const int p1 = s.idx1 | (s.en1 << 10) | (s.ex1 << 14);
     reinterpret_cast<int2*>(pf + gb * 64)[lane] = make_int2(p0, p1);
@@ -70,17 +85,12 @@ symbolize_fields_kernel(const int16_t* __restrict__ coef,
   }
 }
 
-}  // namespace
-
-extern "C" int jt_symbolize_fields(const void* coef, const void* mask,
-                                   void* pf, void* hist, int n_images,
-                                   int segs_per_image, int nblk, int period,
-                                   int y_per_mcu, int accumulate,
-                                   void* stream) {
+template <bool kExplicit>
+int launch(const void* coef, const void* dc_diff, const void* is_luma,
+           const void* mask, void* pf, void* hist, int n_images,
+           int segs_per_image, int nblk, jt::McuLayout layout,
+           int accumulate, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const jt::McuLayout layout{period, y_per_mcu};
-  if (!jt::layout_ok(layout) || nblk % period)
-    return (int)cudaErrorInvalidValue;
   const long long per_image = (long long)segs_per_image * nblk;
   if (n_images == 0) return (int)cudaGetLastError();
   if (!accumulate) {
@@ -97,8 +107,32 @@ extern "C" int jt_symbolize_fields(const void* coef, const void* mask,
   long long per = 8LL * (sms > 0 ? sms : 1) / n_images;
   if (per < 1) per = 1;
   const dim3 grid((unsigned)(need < per ? need : per), (unsigned)n_images);
-  symbolize_fields_kernel<<<grid, kWarps * 32, 0, st>>>(
-      (const int16_t*)coef, (const uint8_t*)mask, (int*)pf, (int*)hist, nblk,
-      per_image, layout);
+  symbolize_fields_kernel<kExplicit><<<grid, kWarps * 32, 0, st>>>(
+      (const int16_t*)coef, (const int*)dc_diff, (const int*)is_luma,
+      (const uint8_t*)mask, (int*)pf, (int*)hist, nblk, per_image, layout);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int jt_symbolize_fields(const void* coef, const void* mask,
+                                   void* pf, void* hist, int n_images,
+                                   int segs_per_image, int nblk, int period,
+                                   int y_per_mcu, int accumulate,
+                                   void* stream) {
+  const jt::McuLayout layout{period, y_per_mcu};
+  if (!jt::layout_ok(layout) || nblk % period)
+    return (int)cudaErrorInvalidValue;
+  return launch<false>(coef, nullptr, nullptr, mask, pf, hist, n_images,
+                       segs_per_image, nblk, layout, accumulate, stream);
+}
+
+extern "C" int jt_symbolize_fields_explicit(const void* coef,
+                                            const void* dc_diff,
+                                            const void* is_luma, void* pf,
+                                            void* hist, int n_images,
+                                            int segs_per_image, int nblk,
+                                            void* stream) {
+  return launch<true>(coef, dc_diff, is_luma, nullptr, pf, hist, n_images,
+                      segs_per_image, nblk, jt::McuLayout{1, 1}, 0, stream);
 }

@@ -2,12 +2,13 @@
 Annex K.3 tables.
 
 The port's own copy of ``jpeg_tpu.huffman.build``: ``HuffmanTable``, the
-K.2 builder, ``table_from_spec``, ``fixed_tables`` and
-``build_tables_batch``.  ``build_tables_batch`` runs the port's native
-(C++) builder and raises if that library is missing; the Python
-``build_table`` stays as the oracle the tests hold the native builder
-against.  Outputs equal ``jpeg_tpu``'s field for field
-(``tests/test_torch_host.py``).
+K.2 builder, ``table_from_spec``, ``fixed_tables``,
+``build_tables_batch`` and ``build_tables_from_histograms``.
+``build_tables_batch`` runs the port's native (C++) builder and raises if
+that library is missing; the Python ``build_table`` stays as the oracle
+the tests hold the native builder against, and the golden encoder's
+``build_tables_from_histograms`` uses it.  Outputs equal ``jpeg_tpu``'s
+field for field (``tests/test_torch_host.py``).
 
 K.2 as the reference encoder does it: pairwise merge of the two least
 frequent symbols (ascending scan, ``<=`` comparisons, so the highest index
@@ -280,3 +281,30 @@ def fixed_tables() -> dict[str, HuffmanTable]:
         "chroma_dc": table_from_spec(_DC_CHROMA_BITS, _DC_CHROMA_VALS),
         "chroma_ac": table_from_spec(_AC_CHROMA_BITS, _AC_CHROMA_VALS),
     }
+
+
+def build_tables_from_histograms(
+    luma_dc_freq: np.ndarray,
+    luma_ac_freq: np.ndarray,
+    chroma_dc_freq: np.ndarray,
+    chroma_ac_freq: np.ndarray,
+) -> dict[str, HuffmanTable]:
+    """Build the 4 per-image tables from 256-entry histograms (Python
+    builder; the golden encoder's).
+
+    Mirrors ``init_huffman`` (main/encoder.c:360-381): Cb and Cr statistics
+    must already be combined into the chroma histograms by the caller.
+    Appends the reserved symbol-256 frequency here.
+    """
+    out = {}
+    for name, freq in (
+        ("luma_dc", luma_dc_freq),
+        ("luma_ac", luma_ac_freq),
+        ("chroma_dc", chroma_dc_freq),
+        ("chroma_ac", chroma_ac_freq),
+    ):
+        full = np.zeros(257, dtype=np.int64)
+        full[:256] = np.asarray(freq, dtype=np.int64)
+        full[256] = 1
+        out[name] = build_table(full)
+    return out

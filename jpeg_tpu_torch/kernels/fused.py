@@ -22,6 +22,19 @@ words, and the dynamic-table stages around the histogram.
 B and E take a segment ``layout`` (``ops.color.Layout``): the interleaved
 4:2:0 MCU, or one component's scan of the 3-scan layout (``SCAN_Y``,
 ``SCAN_CHROMA``), which sets each block's luma flag and DC predecessor.
+Their explicit modes (the kernels ``symbolize_bits_explicit`` and
+``symbolize_fields_explicit``: separate entry points of the same sources)
+read each block's DC difference and luma flag (-1: a padding block, NULL
+slots) from arrays instead, as the f64 exact path hands them over.  On
+them sit the counterparts of three more ``jpeg_tpu.kernels.fused``
+functions, with their signatures and semantics:
+
+* ``analyze_attach_pack_segments`` (K13): B explicit, then C and D;
+* ``symbolize_segments`` (K12, plus the ``hist_1024_t`` after it): E
+  explicit; its fields are [S, nblk, 64] packed fields, not the TPU's
+  transposed, 128-block-padded [64, n] ones, and it takes the number of
+  images its histograms count;
+* ``attach_pack_segments`` (K18b): F with one LUT, then C and D.
 """
 from __future__ import annotations
 
@@ -84,6 +97,49 @@ def symbolize_bits(coef: torch.Tensor, lut: torch.Tensor,
     launch("symbolize_bits", dev, coef.data_ptr(), lut.data_ptr(),
            value.data_ptr(), nbits.data_ptr(), bits.data_ptr(), S, nblk,
            *layout)
+    return value, nbits, bits
+
+
+def _explicit_inputs(name: str, zz: torch.Tensor, dc_diff: torch.Tensor,
+                     is_luma: torch.Tensor):
+    """Check the explicit mode's inputs; int32 ``zz`` is narrowed to int16
+    after a check that its AC slots fit (the DC slot is ignored)."""
+    S, nblk, _ = zz.shape
+    if zz.dtype == torch.int32:
+        ac = zz[..., 1:]
+        if ac.numel() and not bool(((ac >= -32768) & (ac <= 32767)).all()):
+            raise ValueError(f"{name}: zz AC coefficients exceed int16")
+        zz = zz.to(torch.int16)
+    check_tensor("zz", zz, torch.int16, (S, nblk, 64))
+    check_tensor("dc_diff", dc_diff, torch.int32, (S, nblk))
+    check_tensor("is_luma", is_luma, torch.int32, (S, nblk))
+    return zz
+
+
+def symbolize_bits_explicit_plain(zz: torch.Tensor, dc_diff: torch.Tensor,
+                                  is_luma: torch.Tensor, lut: torch.Tensor):
+    """Plain twin of ``symbolize_bits_explicit``, on any device."""
+    idx, extra, extra_n = symbols.symbolize_explicit(zz, dc_diff, is_luma)
+    return _attach_plain(lut[idx], extra, extra_n)
+
+
+def symbolize_bits_explicit(zz: torch.Tensor, dc_diff: torch.Tensor,
+                            is_luma: torch.Tensor, lut: torch.Tensor):
+    """B's explicit mode: [S, nblk, 64] int16 (or int32) coefs, [S, nblk]
+    int32 DC differences and luma flags (1, 0, -1: padding) -> B's
+    (value, nbits, bits).  The DC slot of ``zz`` is ignored."""
+    if on_cpu(zz, dc_diff, is_luma, lut):
+        return symbolize_bits_explicit_plain(zz, dc_diff, is_luma, lut)
+    zz = _explicit_inputs("symbolize_bits_explicit", zz, dc_diff, is_luma)
+    check_tensor("lut", lut, torch.int32, (1024,))
+    S, nblk, _ = zz.shape
+    dev = zz.device
+    value = torch.empty((S, nblk, 64), dtype=torch.uint32, device=dev)
+    nbits = torch.empty((S, nblk, 64), dtype=torch.uint8, device=dev)
+    bits = torch.empty((S, nblk), dtype=torch.int32, device=dev)
+    launch("symbolize_bits_explicit", dev, zz.data_ptr(), dc_diff.data_ptr(),
+           is_luma.data_ptr(), lut.data_ptr(), value.data_ptr(),
+           nbits.data_ptr(), bits.data_ptr(), S, nblk)
     return value, nbits, bits
 
 
@@ -180,13 +236,10 @@ def unpack_fields(pf):
     return pf & 1023, pf >> 14, (pf >> 10) & 15
 
 
-def symbolize_fields_plain(coef: torch.Tensor, n_images: int,
-                           mask: torch.Tensor | None = None,
-                           layout: Layout = MCU_420,
-                           hist: torch.Tensor | None = None):
-    """Plain twin of ``symbolize_fields``, on any device."""
-    idx, extra, extra_n = symbols.symbolize(coef, dct.dc_diff(coef, layout),
-                                            layout)
+def _histograms(idx: torch.Tensor, n_images: int,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+    """[n_images, 1024] int32 counts of each image's non-NULL LUT indices
+    (over the blocks whose ``mask`` byte is non-zero, if given)."""
     per_image = idx.reshape(n_images, -1, 64)
     keep = per_image != NULL_INDEX
     if mask is not None:
@@ -194,7 +247,17 @@ def symbolize_fields_plain(coef: torch.Tensor, n_images: int,
     image = torch.arange(n_images, device=idx.device)[:, None, None]
     flat = (image * 1024 + per_image)[keep].to(torch.int64)
     counts = torch.bincount(flat, minlength=n_images * 1024)
-    counts = counts.to(torch.int32).view(n_images, 1024)
+    return counts.to(torch.int32).view(n_images, 1024)
+
+
+def symbolize_fields_plain(coef: torch.Tensor, n_images: int,
+                           mask: torch.Tensor | None = None,
+                           layout: Layout = MCU_420,
+                           hist: torch.Tensor | None = None):
+    """Plain twin of ``symbolize_fields``, on any device."""
+    idx, extra, extra_n = symbols.symbolize(coef, dct.dc_diff(coef, layout),
+                                            layout)
+    counts = _histograms(idx, n_images, mask)
     if hist is not None:
         hist += counts
         counts = hist
@@ -277,3 +340,86 @@ def attach_pf(pf: torch.Tensor, luts: torch.Tensor):
            value.data_ptr(), nbits.data_ptr(), bits.data_ptr(), n_images,
            S // n_images, nblk)
     return value, nbits, bits
+
+
+# -- the K12, K13 and K18b counterparts ---------------------------------------
+
+
+def _pack(value, nbits, bits, n_segments: int, seg_rows: int):
+    """C then D over S segments -> (words [S, seg_rows * 128] uint32,
+    total_bits [S] int32)."""
+    if n_segments != value.shape[0]:
+        raise ValueError(f"n_segments={n_segments} != leading dim "
+                         f"{value.shape[0]}")
+    offs, totals = segment_offsets(bits)
+    return place(value, nbits, offs, seg_rows * 128), totals
+
+
+def analyze_attach_pack_segments(lut: torch.Tensor, zz: torch.Tensor,
+                                 dc_diff: torch.Tensor, is_luma: torch.Tensor,
+                                 n_segments: int, seg_rows: int):
+    """Fixed-LUT symbolize + attach + pack of S segments (the port of
+    ``jpeg_tpu.kernels.fused.analyze_attach_pack_segments``, K13).
+
+    zz [S, nblk, 64] int16/int32 un-diffed zig-zag coefs (slot 0 ignored),
+    dc_diff [S, nblk] and is_luma [S, nblk] int32 (1 luma, 0 chroma, -1
+    padding) -> (words [S, seg_rows * 128] uint32, total_bits [S] int32).
+    Kernel B in its explicit mode, then C and D.
+    """
+    return _pack(*symbolize_bits_explicit(zz, dc_diff, is_luma, lut),
+                 n_segments, seg_rows)
+
+
+def symbolize_segments_plain(zz: torch.Tensor, dc_diff: torch.Tensor,
+                             is_luma: torch.Tensor, n_segments: int,
+                             n_images: int):
+    """Plain twin of ``symbolize_segments``, on any device."""
+    idx, extra, extra_n = symbols.symbolize_explicit(zz, dc_diff, is_luma)
+    return pack_fields(idx, extra, extra_n), _histograms(idx, n_images)
+
+
+def symbolize_segments(zz: torch.Tensor, dc_diff: torch.Tensor,
+                       is_luma: torch.Tensor, n_segments: int,
+                       n_images: int):
+    """Symbolization pass of the f64 dynamic path (the port of
+    ``jpeg_tpu.kernels.fused.symbolize_segments``, K12, and of the
+    ``hist_1024_t`` after it): kernel E in its explicit mode.
+
+    zz [S, nblk, 64] int16/int32 un-diffed zig-zag coefs (slot 0 ignored),
+    dc_diff [S, nblk] and is_luma [S, nblk] int32 (1 luma, 0 chroma, -1
+    padding) of ``n_images`` images (``S / n_images`` consecutive segments
+    each) -> (pf [S, nblk, 64] int32 packed fields, hist [n_images, 1024]
+    int32, NULL slots not counted).
+    """
+    S, nblk, _ = zz.shape
+    if n_segments != S:
+        raise ValueError(f"n_segments={n_segments} != leading dim {S}")
+    if on_cpu(zz, dc_diff, is_luma):
+        return symbolize_segments_plain(zz, dc_diff, is_luma, n_segments,
+                                        n_images)
+    zz = _explicit_inputs("symbolize_segments", zz, dc_diff, is_luma)
+    if n_images < 1 or S % n_images or n_images > 65535:
+        raise ValueError(f"symbolize_segments: {S} segments are not "
+                         f"{n_images} images")
+    dev = zz.device
+    pf = torch.empty((S, nblk, 64), dtype=torch.int32, device=dev)
+    hist = torch.empty((n_images, 1024), dtype=torch.int32, device=dev)
+    launch("symbolize_fields_explicit", dev, zz.data_ptr(),
+           dc_diff.data_ptr(), is_luma.data_ptr(), pf.data_ptr(),
+           hist.data_ptr(), n_images, S // n_images, nblk)
+    return pf, hist
+
+
+def attach_pack_segments(lut: torch.Tensor, idx: torch.Tensor,
+                         extra: torch.Tensor, extra_n: torch.Tensor,
+                         n_segments: int, seg_rows: int):
+    """Fixed-LUT attach + pack over slot arrays (the port of
+    ``jpeg_tpu.kernels.fused.attach_pack_segments``, K18b).
+
+    idx/extra/extra_n [S, nblk, 64] int32 (``ops.symbols.symbolize``'s) and
+    the [1024] int32 LUT -> (words [S, seg_rows * 128] uint32, total_bits
+    [S] int32).  Kernel F with one LUT, then C and D.
+    """
+    pf = pack_fields(idx, extra, extra_n).contiguous()
+    return _pack(*attach_pf(pf, lut[None].contiguous()), n_segments,
+                 seg_rows)

@@ -1,11 +1,13 @@
 """Plain 4:2:0 front: RGB -> YCbCr planes -> 8x8 blocks in MCU order.
 
-Port of ``jpeg_tpu.ops.color`` (f32 path) and the MCU interleave of
-``jpeg_tpu.pipelines.fast`` (``mcu_reorder``, ``analyze_px``).  The color
-conversion is exact fixed-point integer arithmetic: ``floor(y_t / 1000)``
-and ``floor((cb_t >> 6) / 15625)`` are what the reference's f32 floor form
-computes, because every dividend is < 2^24 and every remainder is far
-larger than an f32 ulp of the quotient.
+Port of ``jpeg_tpu.ops.color`` and the MCU interleave of
+``jpeg_tpu.pipelines.fast`` (``mcu_reorder``, ``analyze_px``).  The f32
+color conversion is exact fixed-point integer arithmetic:
+``floor(y_t / 1000)`` and ``floor((cb_t >> 6) / 15625)`` are what the
+reference's f32 floor form computes, because every dividend is < 2^24 and
+every remainder is far larger than an f32 ulp of the quotient.  The f64
+conversion (exact mode) is the C reference's double expressions, one
+separately rounded torch op per C operation.
 """
 from __future__ import annotations
 
@@ -32,8 +34,22 @@ SCAN_CHROMA = Layout(1, 0)
 PERIOD, Y_PER_MCU = MCU_420
 
 
-def rgb_to_ycbcr_420(rgb: torch.Tensor):
-    """[..., H, W, 3] uint8 -> (y [.., H, W], cb [.., H/2, W/2], cr) int32."""
+def rgb_to_ycbcr_420(rgb: torch.Tensor, dtype: torch.dtype = torch.float32):
+    """[..., H, W, 3] uint8 -> (y [.., H, W], cb [.., H/2, W/2], cr) int32.
+
+    ``dtype=torch.float64``: ``jpeg_tpu``'s double expressions verbatim, in
+    the C grouping (``utils/original.c:372-374``), each product and sum its
+    own rounded op (eager torch never contracts them into an FMA), then
+    floor; float32: the exact fixed-point form.
+    """
+    if dtype == torch.float64:
+        x = rgb.to(torch.float64)
+        r, g, b = x[..., 0], x[..., 1], x[..., 2]
+        y = (0.299 * r + 0.587 * g) + 0.114 * b
+        cb = ((128.0 - 0.168736 * r) - 0.331264 * g) + 0.5 * b
+        cr = ((128.0 + 0.5 * r) - 0.418688 * g) - 0.081312 * b
+        y, cb, cr = (torch.floor(p).to(torch.int32) for p in (y, cb, cr))
+        return y, _avg2x2(cb), _avg2x2(cr)
     x = rgb.to(torch.int32)
     r, g, b = x[..., 0], x[..., 1], x[..., 2]
     y = torch.div(299 * r + 587 * g + 114 * b, 1000, rounding_mode="floor")

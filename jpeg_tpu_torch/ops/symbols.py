@@ -28,6 +28,17 @@ def symbolize(coef: torch.Tensor, dcd: torch.Tensor,
     All three are int32 [S, nblk, 64]; ``idx`` indexes the combined LUT,
     whose luma half ``layout``'s luma blocks use.
     """
+    luma = is_luma_block(coef.shape[-2], coef.device, layout)
+    return symbolize_explicit(coef, dcd,
+                              luma.to(torch.int32).expand(dcd.shape))
+
+
+def symbolize_explicit(coef: torch.Tensor, dcd: torch.Tensor,
+                       is_luma: torch.Tensor):
+    """``symbolize`` with each block's luma flag given: ``is_luma``
+    [S, nblk] holds 1 (luma), 0 (chroma) or -1 (a padding block, whose
+    every slot is invalid, DC included).  The DC slot of ``coef`` is
+    ignored: slot 0 takes ``dcd``."""
     v = coef.to(torch.int32).clone()
     v[..., 0] = dcd
     a = v.abs()
@@ -57,11 +68,10 @@ def symbolize(coef: torch.Tensor, dcd: torch.Tensor,
     sym = torch.where(is_dc, cls, sym)
     extra = torch.where(is_dc, amp, extra)
     extra_n = torch.where(is_dc, cls, extra_n)
-    valid = valid | is_dc
+    valid = (valid | is_dc) & (is_luma >= 0)[..., None]
 
-    is_luma = is_luma_block(v.shape[-2], v.device,
-                            layout)[:, None].expand_as(v)
-    idx = slot_index(sym, valid, is_dc, is_luma)
+    luma = (is_luma == 1)[..., None].expand_as(v)
+    idx = slot_index(sym, valid, is_dc, luma)
     extra = torch.where(valid, extra, zero)
     extra_n = torch.where(valid, extra_n, zero)
     return idx, extra, extra_n

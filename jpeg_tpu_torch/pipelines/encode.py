@@ -1,10 +1,11 @@
 """Reusable and one-shot encoders: the port of ``jpeg_tpu.pipelines.encode``.
 
 ``JpegEncoder`` (``encode``, ``encode_batch``, ``encode_any``,
-``encode_region``), ``encode_jpeg`` and ``encode_gray`` serve f32 4:2:0
+``encode_region``), ``encode_jpeg`` and ``encode_gray`` serve 4:2:0
 (``encode_gray``: one component) in both scan layouts, with fixed, dynamic
-and dynamic-sampled tables, any quality and restart intervals, and give
-``jpeg_tpu``'s bytes.
+and dynamic-sampled tables, any quality and restart intervals, in f32 and
+in the f64 exact mode, and give ``jpeg_tpu``'s bytes (f64: the golden
+encoder's, which ``jpeg_tpu``'s un-jitted f64 path gives too).
 
 * ``"3scan"`` (the reference's three single-component scans): kernel A
   writes the coefficients in the 3-scan order (``front_dct(order="scan")``),
@@ -26,6 +27,13 @@ and dynamic-sampled tables, any quality and restart intervals, and give
 ``encode_batch`` runs a whole batch through one launch per stage and group;
 its files equal the per-image ``encode`` loop's, since every image keeps
 its own tables.
+
+f64 (``dtype="float64"``): the coefficients come from eager torch f64 ops
+on the device (``pipelines.fast.exact_coefs``, in the golden encoder's
+order) instead of kernel A, in the same 3-scan order; the stages after
+them are f32's.  "auto" resolves to the "xla" engine, as in ``jpeg_tpu``,
+so "dynamic-sampled" builds exact tables in both layouts; the interleaved
+layout runs ``FastBatchEncoder``'s exact mode.
 """
 from __future__ import annotations
 
@@ -43,9 +51,10 @@ from ..huffman.build import build_tables_batch, fixed_tables
 from ..kernels import front, fused
 from ..kernels import pack as kpack
 from ..kernels.lut import build_combined_lut
+from ..ops import color, dct
 from ..ops import pack as ops_pack
 from ..ops.color import SCAN_CHROMA, SCAN_Y
-from .fast import FastBatchEncoder, check_ported, host_constants
+from .fast import FastBatchEncoder, check_ported, exact_coefs, host_constants
 
 _MCU = 16
 
@@ -112,10 +121,13 @@ class JpegEncoder:
     # -- helpers -------------------------------------------------------------
 
     def _resolve_engine(self) -> str:
-        """"auto" -> "pallas" on a CUDA device, "xla" on the CPU (as
-        ``jpeg_tpu``: pallas on its accelerator, xla elsewhere)."""
+        """"auto" -> "xla" in f64 exact mode, else "pallas" on a CUDA
+        device and "xla" on the CPU (as ``jpeg_tpu``: pallas on its
+        accelerator, xla elsewhere)."""
         if self.config.engine != "auto":
             return self.config.engine
+        if self.config.dtype == "float64":
+            return "xla"
         return "pallas" if self.device.type == "cuda" else "xla"
 
     def _on_device(self, rgb) -> torch.Tensor:
@@ -166,8 +178,14 @@ class JpegEncoder:
         rows = self.config.restart_interval_mcu_rows
         g = _scan_geometry(h, w, rows)
         B, c = x.shape[0], self._c
-        coef = front.front_dct(x, c["m"], c["bias"], c["ql"], c["qc"],
-                               order="scan")
+        if self.config.dtype == "float64":
+            zz_y, zz_cb, zz_cr = exact_coefs(x.view(B, h, w, 3),
+                                             self._luma_q, self._chroma_q)
+            coef = torch.cat([zz_y.reshape(-1, 64),
+                              torch.cat([zz_cb, zz_cr], 1).reshape(-1, 64)])
+        else:
+            coef = front.front_dct(x, c["m"], c["bias"], c["ql"], c["qc"],
+                                   order="scan")
         n_y = B * g.segs_y * g.n_y
         groups = ((coef[:n_y].view(B * g.segs_y, g.n_y, 64), SCAN_Y),
                   (coef[n_y:].view(B * 2 * g.segs_c, g.n_c, 64), SCAN_CHROMA))
@@ -270,12 +288,11 @@ def encode_gray(plane, config: EncodeConfig | None = None,
 
     Arbitrary dims are padded to whole 8x8 blocks by edge replication, with
     the true size in SOF0.  The plane is the Y channel as it is (no color
-    conversion).  Device path: kernel A's gray mode, then B (fixed) or E,
-    the K.2 builds and F (dynamic; "dynamic-sampled" builds exact tables),
-    then C and D.
+    conversion).  Device path: kernel A's gray mode (f64: the exact DCT in
+    torch ops), then B (fixed) or E, the K.2 builds and F (dynamic;
+    "dynamic-sampled" builds exact tables), then C and D.
     """
     cfg = config or EncodeConfig()
-    check_ported(dataclasses.replace(cfg, subsampling="420"))  # dtype only
     dev = _device(device)
     arr = plane.cpu().numpy() if torch.is_tensor(plane) else np.asarray(plane)
     if arr.ndim != 2:
@@ -291,7 +308,10 @@ def encode_gray(plane, config: EncodeConfig | None = None,
     host = host_constants(cfg.quality)
     c = {k: torch.from_numpy(host[k]).to(dev) for k in ("m", "bias", "ql")}
     x = torch.from_numpy(np.ascontiguousarray(arr, np.uint8))[None].to(dev)
-    coef = front.front_dct_gray(x, c["m"], c["bias"], c["ql"])
+    if cfg.dtype == "float64":
+        coef = dct.dct_quantize_exact(color.to_blocks(x), luma_q)
+    else:
+        coef = front.front_dct_gray(x, c["m"], c["bias"], c["ql"])
     if cfg.huffman == "fixed":
         tables = fixed_tables()
         value, nbits, bits = fused.symbolize_bits(

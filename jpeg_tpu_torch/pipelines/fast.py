@@ -1,7 +1,8 @@
 """Batched interleaved encoder: the port of ``jpeg_tpu.pipelines.fast``.
 
-``FastBatchEncoder`` serves the f32, 4:2:0 interleaved batch encode with
-fixed, dynamic and dynamic-sampled Huffman tables.
+``FastBatchEncoder`` serves the 4:2:0 interleaved batch encode with
+fixed, dynamic and dynamic-sampled Huffman tables, in f32, and in the f64
+exact mode with fixed and dynamic tables.
 
 * Fixed tables: the device step is four kernels (``kernels.front`` A,
   ``kernels.fused`` B, C, D): u8 pixels -> coefficients -> Huffman fields
@@ -10,6 +11,13 @@ fixed, dynamic and dynamic-sampled Huffman tables.
   1 is A then E (packed symbol fields + per-image histograms); the host
   fetches the histograms (one sync, 4 KB per image) and runs the K.2
   builds; stage 2 is F (attach through each image's LUT) then C and D.
+
+* f64 exact mode (``dtype="float64"``): ``analyze_zz`` (eager torch f64
+  ops on the device, in the golden encoder's order) gives the un-diffed
+  interleaved coefficients, their DC differences and luma flags; then
+  ``kernels.fused.analyze_attach_pack_segments`` (B explicit, C, D) for
+  fixed tables, or ``symbolize_segments`` (E explicit) -> the K.2 builds
+  -> F, C, D for dynamic ones.  Its bytes equal the golden encoder's.
 
 Then the host fetches the used word prefix and the port's
 ``native.assemble_interleaved`` writes the files, each with its own
@@ -33,7 +41,8 @@ from ..huffman.build import HuffmanTable, build_tables_batch, fixed_tables
 from ..kernels import front, fused
 from ..kernels import pack as kpack
 from ..kernels.lut import NULL_INDEX, build_combined_lut
-from ..ops.color import PERIOD
+from ..ops import color, dct
+from ..ops.color import PERIOD, Y_PER_MCU
 from ..ops.sample import sample_mask
 
 _MCU = 16  # 4:2:0 MCUs are 16x16 pixels
@@ -80,10 +89,47 @@ def check_ported(config: EncodeConfig) -> None:
             f"subsampling={config.subsampling!r} is not ported yet "
             f"(ROADMAP queue 1 item 3, main-path geometries: 4:2:2 and "
             f"4:4:4)")
-    if config.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={config.dtype!r} is not ported yet "
-            f"(ROADMAP queue 1 item 6, f64 exact mode)")
+
+
+def exact_coefs(rgb: torch.Tensor, luma_q: np.ndarray,
+                chroma_q: np.ndarray):
+    """[B, H, W, 3] u8 -> the f64 exact mode's int16 zig-zag coefs of each
+    component, (y [B, H/8 * W/8, 64], cb [B, H/16 * W/16, 64], cr), every
+    component's blocks in raster order (the golden encoder's stages)."""
+    y, cb, cr = color.rgb_to_ycbcr_420(rgb, dtype=torch.float64)
+    return tuple(dct.dct_quantize_exact(color.to_blocks(plane), q)
+                 for plane, q in ((y, luma_q), (cb, chroma_q),
+                                  (cr, chroma_q)))
+
+
+def analyze_zz(rgb: torch.Tensor, luma_q: np.ndarray, chroma_q: np.ndarray,
+               mcus_x: int, mcus_y: int, n_segs: int):
+    """[B, H, W, 3] u8 -> the f64 exact mode's un-diffed interleaved
+    coefficients (the port of ``jpeg_tpu.pipelines.fast.analyze_zz``).
+
+    Returns seq [B * S, nblk, 64] int16 in the interleaved MCU order (Y00
+    Y01 Y10 Y11 Cb Cr), dc_diff [B * S, nblk] int32 (each component's DC
+    chain restarts in every segment) and is_luma [B * S, nblk] int32.
+    """
+    zz_y, zz_cb, zz_cr = exact_coefs(rgb, luma_q, chroma_q)
+    B, S = zz_y.shape[0], n_segs
+    mps = mcus_x * mcus_y // n_segs
+    y_mcu = zz_y.reshape(B, mcus_y, 2, mcus_x, 2, 64).transpose(2, 3)
+    parts = [y_mcu.reshape(B, S, mps, Y_PER_MCU, 64),
+             zz_cb.reshape(B, S, mps, 1, 64),
+             zz_cr.reshape(B, S, mps, 1, 64)]
+
+    def dc_diff_of(part):  # [B, S, mps, k, 64] -> [B, S, mps, k]
+        dc = part[..., 0].to(torch.int32).reshape(B, S, -1)
+        prev = torch.nn.functional.pad(dc[..., :-1], (1, 0))
+        return (dc - prev).reshape(part.shape[:-1])
+
+    seq = torch.cat(parts, dim=3).reshape(B * S, mps * PERIOD, 64)
+    dc_diff = torch.cat([dc_diff_of(p) for p in parts], dim=3)
+    pattern = torch.tensor([1] * Y_PER_MCU + [0] * (PERIOD - Y_PER_MCU),
+                           dtype=torch.int32, device=seq.device)
+    is_luma = pattern.repeat(B * S, mps)
+    return seq, dc_diff.reshape(B * S, mps * PERIOD), is_luma
 
 
 class FastBatchEncoder:
@@ -154,6 +200,11 @@ class FastBatchEncoder:
         # "dynamic-sampled": the histogram counts jpeg_tpu's sample of
         # blocks (ops.sample), and every possible symbol gets a +1 floor
         self._sampled = self.config.huffman == "dynamic-sampled"
+        self._exact = self.config.dtype == "float64"
+        if self._sampled and self._exact:
+            raise ValueError("dynamic-sampled requires the f32 fast path"
+                             " (exact mode exists for byte parity — "
+                             "sampling would defeat it)")
         self._mask = (torch.from_numpy(sample_mask(
             self.height, self.width, self.n_segs)).to(self.device)
             if self._sampled else None)
@@ -170,9 +221,14 @@ class FastBatchEncoder:
             raise ValueError("step() requires huffman='fixed'")
         x = self._check_batch(rgbs)
         B, S = x.shape[0], self.n_segs
-        value, nbits, bits = fused.symbolize_bits(self._coefs(x), self._lut)
-        words, totals = kpack.pack_segments(value, nbits, B * S,
-                                            self.seg_rows, bits)
+        if self._exact:
+            words, totals = fused.analyze_attach_pack_segments(
+                self._lut, *self._analyze_zz(x), B * S, self.seg_rows)
+        else:
+            value, nbits, bits = fused.symbolize_bits(self._coefs(x),
+                                                      self._lut)
+            words, totals = kpack.pack_segments(value, nbits, B * S,
+                                                self.seg_rows, bits)
         return words.view(B, S, -1), totals.view(B, S)
 
     def dynamic_pack(self, rgbs):
@@ -225,7 +281,12 @@ class FastBatchEncoder:
 
     def _analyze_hist(self, x: torch.Tensor):
         """Stage 1: [B, H, W*3] u8 -> (packed fields [B*S, nblk, 64] int32,
-        per-image histograms [B, 1024] int32), kernels A and E."""
+        per-image histograms [B, 1024] int32): kernels A and E, or in exact
+        mode ``analyze_zz`` and E explicit (``symbolize_segments``)."""
+        if self._exact:
+            B = x.shape[0]
+            return fused.symbolize_segments(*self._analyze_zz(x),
+                                            B * self.n_segs, B)
         return fused.symbolize_fields(self._coefs(x), x.shape[0], self._mask)
 
     @staticmethod
@@ -277,6 +338,13 @@ class FastBatchEncoder:
         """Kernel A: [B, H, W*3] u8 -> [B*S, nblk, 64] int16 coefficients."""
         coef = front.front_dct(x, self._m, self._bias, self._ql, self._qc)
         return coef.view(x.shape[0] * self.n_segs, self.blocks_per_seg, 64)
+
+    def _analyze_zz(self, x: torch.Tensor):
+        """Exact mode: [B, H, W*3] u8 -> ``analyze_zz``'s (seq, dc_diff,
+        is_luma) of the batch's B * S segments."""
+        rgb = x.view(x.shape[0], self.height, self.width, 3)
+        return analyze_zz(rgb, self._luma_q, self._chroma_q, self.mcus_x,
+                          self.mcus_y, self.n_segs)
 
     def _file_header(self, tables: dict[str, HuffmanTable]) -> bytes:
         """SOI .. SOS header of one file with these Huffman tables."""

@@ -3,18 +3,23 @@
 They skip, with a reason, where no CUDA device is present; on the card
 (``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``; the
 suite's conftest imports jax, which the card machine lacks) each kernel
-must equal its plain twin exactly (in every layout and mode), and the
-encoders' bytes must equal the CPU path's, in every Huffman mode.  ``chip_smoke.py`` runs the same
+must equal its plain twin exactly (in every layout and mode, the explicit
+modes of B and E too), and the encoders' bytes must equal the CPU path's,
+in every Huffman mode (f64 exact mode: the golden encoder's as well).  ``chip_smoke.py`` runs the same
 checks at full size.  No jax here."""
 import numpy as np
 import pytest
 import torch
 
-from jpeg_tpu_torch import EncodeConfig, FastBatchEncoder, JpegEncoder
+from jpeg_tpu_torch import (EncodeConfig, FastBatchEncoder, JpegEncoder,
+                            encode_gray)
+from jpeg_tpu_torch.golden import encoder as golden
 from jpeg_tpu_torch.kernels import (fused, front, launch_counts,
                                     reset_launch_counts)
 from jpeg_tpu_torch.ops.color import SCAN_CHROMA, SCAN_Y
+from jpeg_tpu_torch.kernels.pack import rows_per_segment
 from jpeg_tpu_torch.ops.dct import set_exact_matmul
+from jpeg_tpu_torch.pipelines.fast import host_constants
 
 from chip_smoke import synthetic_batch
 
@@ -135,3 +140,64 @@ def test_3scan_encode_equals_cpu(dev, mode):
     want = JpegEncoder(cfg, device="cpu").encode(img)
     assert launch_counts() == dict.fromkeys(launch_counts(), 0)
     assert got == want
+
+
+def test_explicit_kernels_equal_plain_twins(dev):
+    """B and E in their explicit modes (K13, K12) and F + C + D over slot
+    arrays (K18b), on random coefficients, DC differences up to +-4095 and
+    luma flags with padding blocks."""
+    rng = np.random.default_rng(43)
+    S, n = 4, 150
+    zz = rng.integers(-2048, 2048, (S, n, 64))
+    zz = np.where(rng.random((S, n, 64)) < 0.2, zz, 0)
+    dcd = rng.integers(-4095, 4096, (S, n))
+    dcd[0, :2] = [4095, -4095]
+    isl = rng.integers(-1, 2, (S, n))
+    cpu = [torch.from_numpy(a.astype(np.int32)) for a in (zz, dcd, isl)]
+    cpu[0] = cpu[0].to(torch.int16)
+    zz_d, dcd_d, isl_d = (t.to(dev) for t in cpu)
+    lut_c = torch.from_numpy(host_constants(None)["lut"])
+    lut = lut_c.to(dev)
+    for a, b in zip(fused.symbolize_bits_explicit(zz_d, dcd_d, isl_d, lut),
+                    fused.symbolize_bits_explicit_plain(zz_d, dcd_d, isl_d,
+                                                        lut)):
+        assert torch.equal(_i32(a), _i32(b))
+    pf, hist = fused.symbolize_segments(zz_d, dcd_d, isl_d, S, 2)
+    want_pf, want_hist = fused.symbolize_segments_plain(zz_d, dcd_d, isl_d,
+                                                        S, 2)
+    assert torch.equal(pf, want_pf) and torch.equal(hist, want_hist)
+    seg_rows = rows_per_segment(n * 64)
+    slots = fused.unpack_fields(pf)
+    for got, want in (
+            (fused.analyze_attach_pack_segments(lut, zz_d, dcd_d, isl_d, S,
+                                                seg_rows),
+             fused.analyze_attach_pack_segments(lut_c, *cpu, S, seg_rows)),
+            (fused.attach_pack_segments(lut, *slots, S, seg_rows),
+             fused.attach_pack_segments(lut_c, *(t.cpu() for t in slots), S,
+                                        seg_rows))):
+        assert torch.equal(_i32(got[0]).cpu(), _i32(want[0]))
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("mode", ["fixed", "dynamic"])
+def test_f64_card_bytes_equal_golden_and_cpu(dev, mode):
+    imgs = synthetic_batch(np.random.default_rng(45), 2, 128, 96)
+    kw = dict(scan_layout="interleaved", huffman=mode,
+              restart_interval_mcu_rows=4)
+    cfg = EncodeConfig(dtype="float64", **kw)
+    reset_launch_counts()
+    got = FastBatchEncoder(128, 96, cfg, device=dev).encode_batch(imgs)
+    path = (("symbolize_bits_explicit",) if mode == "fixed"
+            else ("symbolize_fields_explicit", "attach_pf"))
+    assert launch_counts() == {
+        k: int(k in ("segment_offsets", "place") + path)
+        for k in launch_counts()}
+    assert got == [golden.encode(img, **kw) for img in imgs]
+    assert got == FastBatchEncoder(128, 96, cfg,
+                                   device="cpu").encode_batch(imgs)
+    cfg3 = EncodeConfig(dtype="float64", huffman=mode)
+    assert JpegEncoder(cfg3, device=dev).encode(imgs[0]) == \
+        golden.encode(imgs[0], huffman=mode)
+    plane = np.ascontiguousarray(imgs[1, :, :, 0])
+    assert encode_gray(plane, cfg3, device=dev) == \
+        encode_gray(plane, cfg3, device="cpu")

@@ -127,7 +127,7 @@ def test_constructor_errors_match_jax(args):
 
 @pytest.mark.parametrize("cfg", [dict(subsampling="422"),
                                  dict(subsampling="444"),
-                                 dict(dtype="float64")])
+                                 dict(dtype="float64", subsampling="444")])
 def test_unported_settings_name_their_roadmap_item(cfg):
     base = dict(scan_layout="interleaved", huffman="fixed")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
@@ -174,6 +174,7 @@ def test_cpu_wrappers_run_the_plain_twins_and_launch_nothing():
     plain = fused.place_plain(fields[0], fields[1], offs[0], seg_words)
     assert torch.equal(words.view(torch.int32), plain.view(torch.int32))
     assert launch_counts() == dict.fromkeys(launch_counts(), 0)
-    assert set(launch_counts()) == {"front_dct", "symbolize_bits",
-                                    "segment_offsets", "place",
-                                    "symbolize_fields", "attach_pf"}
+    assert set(launch_counts()) == {
+        "front_dct", "symbolize_bits", "symbolize_bits_explicit",
+        "segment_offsets", "place", "symbolize_fields",
+        "symbolize_fields_explicit", "attach_pf"}

@@ -86,8 +86,9 @@ def test_every_kernel_has_a_source_and_an_entry_point():
     from jpeg_tpu_torch import _build
     from jpeg_tpu_torch.kernels import KERNELS
     assert set(_build.SIGNATURES) == set(KERNELS)
-    for name, (fn, _) in _build.SIGNATURES.items():
-        src = (PKG / "csrc" / f"{name}.cu").read_text()
+    assert set(_build.SOURCES) == {p.stem for p in (PKG / "csrc").glob("*.cu")}
+    for name, (source, fn, _) in _build.SIGNATURES.items():
+        src = (PKG / "csrc" / f"{source}.cu").read_text()
         assert f'extern "C" int {fn}(' in src
         assert "return (int)cudaGetLastError();" in src
         assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
@@ -98,14 +99,14 @@ def test_kernel_hash_covers_included_headers(tmp_path, monkeypatch):
     from jpeg_tpu_torch import _build
     assert [p.split("/")[-1] for p in _build.sources("symbolize_fields")] \
         == ["symbolize_fields.cu", "block_slots.cuh"]
-    for name in _build.SIGNATURES:
+    for name in _build.SOURCES:
         (tmp_path / f"{name}.cu").write_bytes(
             (PKG / "csrc" / f"{name}.cu").read_bytes())
     header = (PKG / "csrc" / "block_slots.cuh").read_bytes()
     (tmp_path / "block_slots.cuh").write_bytes(header)
     monkeypatch.setattr(_build, "SRC_DIR", str(tmp_path))
-    before = {n: _build._target(n)[1] for n in _build.SIGNATURES}
+    before = {n: _build._target(n)[1] for n in _build.SOURCES}
     (tmp_path / "block_slots.cuh").write_bytes(header + b"// edited\n")
-    after = {n: _build._target(n)[1] for n in _build.SIGNATURES}
+    after = {n: _build._target(n)[1] for n in _build.SOURCES}
     changed = {n for n in before if before[n] != after[n]}
     assert changed == {"symbolize_bits", "symbolize_fields"}
