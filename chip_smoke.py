@@ -6,7 +6,7 @@
 Phases, each of which raises (and so exits non-zero) on any failure:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
-   the build of the eight CUDA kernels (six sources) from
+   the build of the nine CUDA kernels (six sources) from
    ``jpeg_tpu_torch/csrc`` and of the port's native host library (g++);
 2. every kernel against its plain PyTorch twin on the card, at the shapes
    of a 16x640x640 batch (E with and without the dynamic-sampled mask, F
@@ -16,8 +16,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    LUTs, C and D on the 8 Y restart segments of 1920x1088 r17; B and E in
    their explicit modes (the f64 path's K13 and K12 counterparts; B with
    C and D as K13's whole function) and F + C + D over slot arrays (K18b)
-   at the shapes of a 4x1920x1280 f64 batch; integer outputs must be
-   exactly equal;
+   at the shapes of a 4x1920x1280 f64 batch; A's 4:2:2 and 4:4:4 modes
+   (both orders), its pixel-block mode (rows and the transposed ``xt``),
+   K7 (``dct_attach_pack_segments``: A's pixel mode, B, C, D) and K18a
+   (``dct_index_xt``: A's pixel mode, E) at the shapes of a 4x1920x1280
+   batch of each sampling; integer outputs must be exactly equal;
 3. the main paths, each with the launch counts reset just before its run
    and read just after, every kernel of the path launched:
    a. ``FastBatchEncoder.encode_batch`` on 16x640x640, 4x1920x1280 and
@@ -35,9 +38,17 @@ Phases, each of which raises (and so exits non-zero) on any failure:
       encoder's (``jpeg_tpu_torch.golden.encoder``, every image; it has no
       3-scan restarts and no gray mode) and, at 16x640x640, 1920x1088 r17
       and for gray, the CPU plain path's.
+   d. 4:2:2 and 4:4:4, fixed and dynamic tables: ``FastBatchEncoder`` at
+      16x640x640 and 4x1920x1280 of each, 4:2:2 4x1920x1080 (broadcast
+      frames: 135 MCU rows of 8 px) and 2x1920x1080 with 5 restart
+      segments, 4:4:4 4x1080x1080 (a width off a multiple of 16, where
+      jpeg_tpu takes its pixel route); ``JpegEncoder.encode`` 3-scan at
+      1920x1280 of each; and the f64 exact mode of that ``encode``.  Every
+      file must equal the CPU plain path's.
    The JPEG bytes must equal those of the same call on the CPU (the plain
-   twins; a batch compares its first 4 images, since each image's tables
-   are its own), the first file of each run must decode with the port's
+   twins; a batch of 3a-3c compares its first 4 images, since each
+   image's tables are its own), the first file of each run must decode
+   with the port's
    ``golden.decoder`` at PSNR > 28 dB, the dynamic files' DHT segments
    must differ from the fixed tables', and the restart files must carry
    DRI and RSTn markers (3-scan: a DRI per scan);
@@ -50,7 +61,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    and C + D, at the shapes of a 1920x1280 3-scan Y scan: the ports of
    K14 and K15), and each f64 case's call time, device time by kernel,
    idle share and the share of the device time spent in the f64
-   analysis (the eager torch ops before the kernels).
+   analysis (the eager torch ops before the kernels); and each 4:2:2 and
+   4:4:4 case of 3d: its call ms, device time by kernel and idle share.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 the JSON verdict.  Inputs are synthetic images (smooth gradients plus hard
@@ -77,7 +89,9 @@ from jpeg_tpu_torch.golden import encoder as golden_enc
 from jpeg_tpu_torch.kernels import (fused, front, launch_counts,
                                     reset_launch_counts)
 from jpeg_tpu_torch.kernels import pack as kpack
-from jpeg_tpu_torch.ops.color import SCAN_CHROMA, SCAN_Y
+from jpeg_tpu_torch.ops import color
+from jpeg_tpu_torch.ops.color import (LAYOUTS, SAMPLING_GEOMETRY, SCAN_CHROMA,
+                                      SCAN_Y)
 from jpeg_tpu_torch.ops.dct import set_exact_matmul
 from jpeg_tpu_torch.pipelines.fast import analyze_zz
 
@@ -102,6 +116,17 @@ F64_DYNAMIC_PATH = ("symbolize_fields_explicit", "attach_pf",
 F64_SCAN_PATHS = {"fixed": ("symbolize_bits", "segment_offsets", "place"),
                   "dynamic": ("symbolize_fields", "attach_pf",
                               "segment_offsets", "place")}
+# 4:2:2 and 4:4:4: FastBatchEncoder runs (sampling, batch, height, width,
+# restart rows), each in SAMPLING_MODES; the 3-scan encode and its f64
+# exact mode at one 1920x1280 image of each; the batch of phase 2's checks
+SAMPLING_GEOMETRIES = [
+    ("422", 16, 640, 640, 0), ("422", 4, 1280, 1920, 0),
+    ("422", 4, 1080, 1920, 0), ("422", 2, 1080, 1920, 27),
+    ("444", 16, 640, 640, 0), ("444", 4, 1280, 1920, 0),
+    ("444", 4, 1080, 1080, 0)]
+SAMPLING_MODES = ["fixed", "dynamic"]
+SAMPLING_KERNEL_BATCH = (4, 1280, 1920)
+LABEL = {"420": "4:2:0", "422": "4:2:2", "444": "4:4:4"}
 # the CUDA kernels by their names in a profile, and the copies
 OWN_KERNELS = ("front_dct", "symbolize_bits_kernel", "segment_offsets",
                "place_kernel", "symbolize_fields_kernel", "attach_pf")
@@ -143,6 +168,30 @@ KERNEL_INFO = {
                              "segment_offsets.cu + place.cu (F + C + D, "
                              "kernels/fused.py::attach_pack_segments)",
                              "jpeg_tpu/kernels/fused.py:1509 (K18b)"),
+    # kernel A's 4:2:2 and 4:4:4 modes: launches are front_dct's on the
+    # paths of that sampling
+    "front_dct 4:2:2": ("jpeg_tpu_torch/csrc/front_dct.cu "
+                        "(front_dct_kernel<kS422>)",
+                        "jpeg_tpu/kernels/front.py:823 (K1), front.py:916 "
+                        "(K2) and front.py:502 (K5) at sampling 422"),
+    "front_dct 4:4:4": ("jpeg_tpu_torch/csrc/front_dct.cu "
+                        "(front_dct_kernel<kS444>)",
+                        "jpeg_tpu/kernels/front.py:823 (K1), front.py:916 "
+                        "(K2) and front.py:502 (K5) at sampling 444"),
+    "front_dct_px": ("jpeg_tpu_torch/csrc/front_dct.cu "
+                     "(front_dct_px_kernel)",
+                     "the DCT of jpeg_tpu/kernels/fused.py:730 (K7) and "
+                     "fused.py:688 (K18a)"),
+    # K7 and K18a: A's pixel mode and B + C + D, or E; no caller on a path
+    # of the port yet (the sharded pixel route): launches stay 0
+    "dct_attach_pack_segments": ("jpeg_tpu_torch/csrc/front_dct.cu + "
+                                 "symbolize_bits.cu + segment_offsets.cu + "
+                                 "place.cu (A px + B + C + D, kernels/"
+                                 "fused.py::dct_attach_pack_segments)",
+                                 "jpeg_tpu/kernels/fused.py:730 (K7)"),
+    "dct_index_xt": ("jpeg_tpu_torch/csrc/front_dct.cu + "
+                     "symbolize_fields.cu (A px + E, kernels/fused.py::"
+                     "dct_index_xt)", "jpeg_tpu/kernels/fused.py:688 (K18a)"),
 }
 
 # NVIDIA's H100 SXM data sheet: HBM3 rate, FP32 rate outside the tensor
@@ -286,10 +335,30 @@ def explicit_bounds(S: int, nblk: int, seg_words: int, n_images: int):
             for k, v in nbytes.items()}
 
 
-def plain_pack(value, nbits, bits, seg_rows: int):
-    """C then D as their plain twins (the composites' plain versions)."""
-    offs, totals = fused.segment_offsets_plain(bits)
-    return fused.place_plain(value, nbits, offs, seg_rows * 128), totals
+def sampling_bounds(B: int, H: int, W: int, sampling: str, seg_words: int):
+    """bound_ms, bound_by of A's color mode at ``sampling`` and of its
+    pixel mode, K7 and K18a over that batch's blocks (one segment per
+    image): the larger of their bytes over the HBM rate and the DCT's
+    64x64 FMAs per block over the FP32 rate.  A px and K18a read f32
+    pixel blocks; K18a writes int32 indices, K7 the words and totals."""
+    mcu_w, mcu_h, ypm = SAMPLING_GEOMETRY[sampling]
+    nblocks = B * (H // mcu_h) * (W // mcu_w) * (ypm + 2)
+    slots = nblocks * 64
+    consts = (64 * 64 + 3 * 64) * 4
+    nbytes = {
+        f"front_dct {LABEL[sampling]}": B * H * W * 3 + slots * 2 + consts,
+        "front_dct_px": slots * 4 + slots * 2 + consts,
+        "dct_attach_pack_segments": slots * 4 + consts + 4096
+        + B * seg_words * 4 + B * 4,
+        "dct_index_xt": slots * 4 + consts + slots * 4,
+    }
+    t_ops = nblocks * 64 * 64 * 2 / FP32_FLOP_PER_S * 1e3
+    out = {}
+    for name, n in nbytes.items():
+        t_bytes = n / HBM_BYTES_PER_S * 1e3
+        out[name] = ((t_ops, "operations") if t_ops > t_bytes
+                     else (t_bytes, "bytes"))
+    return out
 
 
 def dynamic_split(e: FastBatchEncoder, xd: torch.Tensor,
@@ -517,9 +586,58 @@ def f64_cases(rng: np.random.Generator, scale: int = 1) -> list[dict]:
     return cases
 
 
+def sampling_cases(rng: np.random.Generator) -> list[dict]:
+    """The 4:2:2 and 4:4:4 runs of phase 3d, in ``f64_cases``' form (each
+    also names its ``sampling``); every reference is the CPU plain path,
+    on every image."""
+    cases = []
+    for sampling, b, h, w, rows in SAMPLING_GEOMETRIES:
+        batch = synthetic_batch(rng, b, h, w)
+        for mode in SAMPLING_MODES:
+            cfg = EncodeConfig(scan_layout="interleaved", huffman=mode,
+                               subsampling=sampling,
+                               restart_interval_mcu_rows=rows)
+
+            def make(dev, cfg=cfg, batch=batch):
+                enc = FastBatchEncoder(batch.shape[1], batch.shape[2], cfg,
+                                       device=dev)
+                x = torch.from_numpy(batch).to(dev)
+                return lambda: enc.encode_batch(x)
+            n_segs = h // 8 // rows if rows else 1
+            cases.append(dict(
+                label=f"{LABEL[sampling]} FastBatchEncoder.encode_batch "
+                      f"{mode} {b}x{h}x{w} restart_rows={rows}",
+                sampling=sampling, kernels=path_of(cfg), make=make,
+                refs=[("the CPU plain path",
+                       lambda make=make: make("cpu")())],
+                original=batch[0],
+                restarts=(1, n_segs - 1) if rows else None))
+    for sampling in ("422", "444"):
+        img = synthetic_batch(rng, 1, 1280, 1920)[0]
+        for dtype in ("float32", "float64"):
+            for mode in SAMPLING_MODES:
+                cfg = EncodeConfig(huffman=mode, subsampling=sampling,
+                                   dtype=dtype)
+
+                def make(dev, cfg=cfg, img=img):
+                    enc = JpegEncoder(cfg, device=dev)
+                    x = torch.from_numpy(img).to(dev)
+                    return lambda: [enc.encode(x)]
+                f64 = dtype == "float64"
+                cases.append(dict(
+                    label=f"{LABEL[sampling]} {'f64 ' if f64 else ''}"
+                          f"JpegEncoder.encode 3scan {mode} 1920x1280",
+                    sampling=sampling,
+                    kernels=F64_SCAN_PATHS[mode] if f64 else path_of(cfg),
+                    make=make, refs=[("the CPU plain path",
+                                      lambda make=make: make("cpu")())],
+                    original=img, restarts=None))
+    return cases
+
+
 def check_f64_case(case: dict, files: list[bytes], fixed_dht) -> str:
-    """Hold one phase-3c run against its references and the decoder;
-    returns a summary line."""
+    """Hold one phase-3c or 3d run against its references and the
+    decoder; returns a summary line."""
     parts = []
     for what, ref in case["refs"]:
         want = ref()
@@ -766,14 +884,67 @@ def main() -> int:
         lambda: fused.symbolize_segments_plain(seq, dcd, isl, s4, b4))
     calls["attach_pack_segments"] = (
         lambda: fused.attach_pack_segments(enc._lut, *slots4, s4, seg_rows4),
-        lambda: plain_pack(*fused.attach_pf_plain(fused.pack_fields(
+        lambda: fused.pack_plain(*fused.attach_pf_plain(fused.pack_fields(
             *slots4), lut1), seg_rows4))
     k13 = (lambda: fused.analyze_attach_pack_segments(
                enc._lut, seq, dcd, isl, s4, seg_rows4),
-           lambda: plain_pack(*fused.symbolize_bits_explicit_plain(
+           lambda: fused.pack_plain(*fused.symbolize_bits_explicit_plain(
                seq, dcd, isl, enc._lut), seg_rows4))
     more_checks["symbolize_bits_explicit"] = [
         ("with C and D: K13's analyze_attach_pack_segments", *k13)]
+    # A's 4:2:2 and 4:4:4 modes, its pixel-block mode, K7 and K18a at the
+    # shapes of a 4x1920x1280 batch of each sampling (one segment per
+    # image); the inputs come from a fourth generator
+    rng4 = np.random.default_rng(args.seed + 3)
+    b5, h5, w5 = SAMPLING_KERNEL_BATCH
+    x5 = torch.from_numpy(synthetic_batch(rng4, b5, h5, w5)).to(dev)
+    x5f = x5.view(b5, h5, w5 * 3)
+    px5 = {sp: color.mcu_blocks(*color.rgb_to_ycbcr(x5, sp), sp)
+           for sp in ("422", "444")}
+    xt5 = {sp: px.reshape(-1, 64).T.contiguous() for sp, px in px5.items()}
+    seg_rows5 = {sp: kpack.rows_per_segment(px.shape[1] * 64)
+                 for sp, px in px5.items()}
+    at_of = {}
+    for sp in ("422", "444"):
+        name = f"front_dct {LABEL[sp]}"
+        at_of[name] = f"{b5}x{h5}x{w5} {LABEL[sp]}"
+        calls[name] = (
+            lambda sp=sp: front.front_dct(x5f, *consts, sampling=sp),
+            lambda sp=sp: front.front_dct_plain(x5f, *consts, sampling=sp))
+        more_checks[name] = [
+            ("3-scan order",
+             lambda sp=sp: front.front_dct(x5f, *consts, order="scan",
+                                           sampling=sp),
+             lambda sp=sp: front.front_dct_plain(x5f, *consts, order="scan",
+                                                 sampling=sp))]
+
+    def px_mode(sp, plain=False, transposed=False):
+        fn = front.front_dct_px_plain if plain else front.front_dct_px
+        src = xt5[sp] if transposed else px5[sp]
+        return lambda: fn(src, *consts, LAYOUTS[sp], transposed=transposed)
+
+    def k7(sp, plain=False):
+        fn = (fused.dct_attach_pack_segments_plain if plain
+              else fused.dct_attach_pack_segments)
+        return lambda: fn(enc._lut, *consts, px5[sp], b5, *LAYOUTS[sp],
+                          seg_rows5[sp])
+
+    def k18a(sp, plain=False):
+        fn = fused.dct_index_xt_plain if plain else fused.dct_index_xt
+        return lambda: fn(*consts, xt5[sp], b5, *LAYOUTS[sp])
+    calls["front_dct_px"] = (px_mode("444"), px_mode("444", plain=True))
+    more_checks["front_dct_px"] = [
+        ("transposed xt", px_mode("444", transposed=True),
+         px_mode("444", plain=True, transposed=True)),
+        ("4:2:2 layout", px_mode("422"), px_mode("422", plain=True))]
+    calls["dct_attach_pack_segments"] = (k7("444"), k7("444", plain=True))
+    more_checks["dct_attach_pack_segments"] = [
+        ("4:2:2 layout", k7("422"), k7("422", plain=True))]
+    calls["dct_index_xt"] = (k18a("444"), k18a("444", plain=True))
+    more_checks["dct_index_xt"] = [
+        ("4:2:2 layout", k18a("422"), k18a("422", plain=True))]
+    for name in ("front_dct_px", "dct_attach_pack_segments", "dct_index_xt"):
+        at_of[name] = f"{b5}x{h5}x{w5} 4:4:4 pixel blocks"
     # one PyTorch call computing the same function, where there is one:
     # C's offsets are a cumsum; E's histogram is one bincount (the image
     # offset folded into the index)
@@ -808,7 +979,7 @@ def main() -> int:
                        for _, h, w, r in GEOMETRIES] for mode in MODES}
     path_kernels = {"fixed": FIXED_PATH, "dynamic": DYNAMIC_PATH,
                     "dynamic-sampled": DYNAMIC_PATH}
-    launches = dict.fromkeys(calls, 0)
+    launches = dict.fromkeys([*calls, *launch_counts()], 0)
     fixed_dht = None
     for mode in MODES:
         torch.cuda.synchronize()
@@ -893,6 +1064,25 @@ def main() -> int:
         print("  " + check_f64_case(case, files, fixed_dht))
         f64_runs.append((case["label"], fn))
 
+    # -- phase 3d: 4:2:2 and 4:4:4, each call its own path -------------------
+    sampling_runs = []
+    for case in sampling_cases(np.random.default_rng(args.seed + 4)):
+        fn = case["make"](dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        files = fn()
+        counts = launch_counts()
+        print(f"main path {case['label']}: launches {json.dumps(counts)}")
+        for name in case["kernels"]:
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the "
+                                     f"path {case['label']}")
+        for name, n in counts.items():
+            launches[name] += n
+        launches[f"front_dct {LABEL[case['sampling']]}"] += counts["front_dct"]
+        print("  " + check_f64_case(case, files, fixed_dht))
+        sampling_runs.append((case["label"], fn))
+
     # -- phase 4: timings ----------------------------------------------------
     for mode in MODES:
         for (b, h, w, r), bt, e in zip(GEOMETRIES, batches, encoders[mode]):
@@ -973,6 +1163,17 @@ def main() -> int:
               f"share {idle:.4f}; by name: " + ", ".join(
                   f"{k} {v:.2f}" for k, v in sorted(
                       per_call.items(), key=lambda kv: -kv[1])[:12]))
+    # the 4:2:2 and 4:4:4 cases: call time, device time by kernel, idle
+    for label, fn in sampling_runs:
+        call_ms = host_ms(fn, args.runs)
+        per_call, idle = device_profile(fn, args.runs)
+        print(f"timing {label} on [{card}]: {call_ms:.4f} ms; median of "
+              f"{args.runs}")
+        print(f"  device µs per call (torch.profiler, {args.runs} calls): " +
+              ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                  per_call.items(), key=lambda kv: -kv[1])) +
+              f"; total {sum(per_call.values()):.2f}; device idle share "
+              f"{idle:.4f}")
     x_big = torch.from_numpy(synthetic_batch(rng2, 1, 1280, 1920)).to(dev)
     scan_kernel_times(x_big.reshape(1, 1280, 1920 * 3), consts, enc._lut,
                       card, args.runs)
@@ -983,8 +1184,8 @@ def main() -> int:
                           for f in (plain, kernel, kernel, plain))
         lib = cuda_ms(library[name], args.runs) if name in library else None
         times[name] = ((k0 + k1) / 2, (p0 + p1) / 2, lib)
-        at = (f"{b4}x{h4}x{w4} f64" if name in explicit_bounds(1, 1, 1, 1)
-              else f"{B}x{H}x{W}")
+        at = at_of.get(name, f"{b4}x{h4}x{w4} f64" if name in
+                       explicit_bounds(1, 1, 1, 1) else f"{B}x{H}x{W}")
         print(f"timing kernel {name} at {at} on [{card}]: "
               f"{times[name][0]:.4f} ms ({k0:.4f}, {k1:.4f}), plain twin "
               f"{times[name][1]:.4f} ms ({p0:.4f}, {p1:.4f})"
@@ -994,6 +1195,8 @@ def main() -> int:
                       for f in (k13[1], k13[0], k13[0], k13[1]))
     bound = bounds(B, H, W, enc.n_segs, seg_words)
     bound.update(explicit_bounds(s4, nblk4, seg_rows4 * 128, b4))
+    for sp in ("422", "444"):  # A px, K7 and K18a: the 4:4:4 shapes
+        bound.update(sampling_bounds(b5, h5, w5, sp, seg_rows5[sp] * 128))
     print(f"timing K13 (B explicit + C + D: analyze_attach_pack_segments) "
           f"at {b4}x{h4}x{w4} f64 on [{card}]: {(k0 + k1) / 2:.4f} ms "
           f"({k0:.4f}, {k1:.4f}), plain {(p0 + p1) / 2:.4f} ms ({p0:.4f}, "

@@ -1,8 +1,9 @@
 """PyTorch / CUDA port of the jpeg_tpu encoders.
 
-* ``FastBatchEncoder``: the f32, 4:2:0, interleaved-scan batch encode with
-  fixed (T.81 Annex K.3), dynamic and dynamic-sampled Huffman tables,
-  byte-identical to ``jpeg_tpu.pipelines.fast.FastBatchEncoder``.
+* ``FastBatchEncoder``: the interleaved-scan batch encode at 4:2:0, 4:2:2
+  and 4:4:4 with fixed (T.81 Annex K.3), dynamic and dynamic-sampled
+  Huffman tables, in f32 and the f64 exact mode, byte-identical to
+  ``jpeg_tpu.pipelines.fast.FastBatchEncoder``.
 * ``JpegEncoder`` (``encode``, ``encode_batch``, ``encode_any``,
   ``encode_region``), ``encode_jpeg`` and ``encode_gray``: the one-shot
   API of ``jpeg_tpu.pipelines.encode`` in both scan layouts ("3scan", the

@@ -33,7 +33,9 @@ _INT = ctypes.c_int
 # Every entry returns the launch's cudaGetLastError() as an int.
 SIGNATURES = {
     "front_dct": ("front_dct", "jt_front_dct",
-                  [_VOID] * 6 + [_INT] * 4 + [_VOID]),
+                  [_VOID] * 6 + [_INT] * 5 + [_VOID]),
+    "front_dct_px": ("front_dct", "jt_front_dct_px",
+                     [_VOID] * 6 + [_INT] * 5 + [_VOID]),
     "symbolize_bits": ("symbolize_bits", "jt_symbolize_bits",
                        [_VOID] * 5 + [_INT] * 4 + [_VOID]),
     "symbolize_bits_explicit": ("symbolize_bits",

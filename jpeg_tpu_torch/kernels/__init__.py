@@ -11,9 +11,9 @@ import torch
 
 from .. import _build
 
-KERNELS = ("front_dct", "symbolize_bits", "symbolize_bits_explicit",
-           "segment_offsets", "place", "symbolize_fields",
-           "symbolize_fields_explicit", "attach_pf")
+KERNELS = ("front_dct", "front_dct_px", "symbolize_bits",
+           "symbolize_bits_explicit", "segment_offsets", "place",
+           "symbolize_fields", "symbolize_fields_explicit", "attach_pf")
 
 _launches = dict.fromkeys(KERNELS, 0)
 

@@ -20,8 +20,9 @@ words, and the dynamic-table stages around the histogram.
   ports the attach of ``_pf_place_kernel`` and ``_attach_grouped_kernel``.
 
 B and E take a segment ``layout`` (``ops.color.Layout``): the interleaved
-4:2:0 MCU, or one component's scan of the 3-scan layout (``SCAN_Y``,
-``SCAN_CHROMA``), which sets each block's luma flag and DC predecessor.
+4:2:0, 4:2:2 or 4:4:4 MCU, or one component's scan of the 3-scan layout
+(``SCAN_Y``, ``SCAN_CHROMA``), which sets each block's luma flag and DC
+predecessor.
 Their explicit modes (the kernels ``symbolize_bits_explicit`` and
 ``symbolize_fields_explicit``: separate entry points of the same sources)
 read each block's DC difference and luma flag (-1: a padding block, NULL
@@ -35,6 +36,12 @@ functions, with their signatures and semantics:
   transposed, 128-block-padded [64, n] ones, and it takes the number of
   images its histograms count;
 * ``attach_pack_segments`` (K18b): F with one LUT, then C and D.
+
+Two more sit on kernel A's pixel-block mode (``front.front_dct_px``):
+
+* ``dct_attach_pack_segments`` (K7): A's pixel mode, then B, C and D;
+* ``dct_index_xt`` (K18a): A's pixel mode on the transposed ``xt``
+  layout, then E, giving the LUT index field only.
 """
 from __future__ import annotations
 
@@ -43,7 +50,7 @@ import torch
 from ..ops import dct, symbols
 from ..ops.color import MCU_420, Layout
 from ..ops.pack import max_words_for_slots
-from . import check_tensor, launch, on_cpu
+from . import check_tensor, front, launch, on_cpu
 from .lut import NULL_INDEX
 
 # -- B: symbolize_bits -------------------------------------------------------
@@ -355,6 +362,12 @@ def _pack(value, nbits, bits, n_segments: int, seg_rows: int):
     return place(value, nbits, offs, seg_rows * 128), totals
 
 
+def pack_plain(value, nbits, bits, seg_rows: int):
+    """C then D as their plain twins (the composites' plain versions)."""
+    offs, totals = segment_offsets_plain(bits)
+    return place_plain(value, nbits, offs, seg_rows * 128), totals
+
+
 def analyze_attach_pack_segments(lut: torch.Tensor, zz: torch.Tensor,
                                  dc_diff: torch.Tensor, is_luma: torch.Tensor,
                                  n_segments: int, seg_rows: int):
@@ -423,3 +436,83 @@ def attach_pack_segments(lut: torch.Tensor, idx: torch.Tensor,
     pf = pack_fields(idx, extra, extra_n).contiguous()
     return _pack(*attach_pf(pf, lut[None].contiguous()), n_segments,
                  seg_rows)
+
+
+# -- the K7 and K18a counterparts: kernel A's pixel-block mode ----------------
+
+
+def dct_attach_pack_segments_plain(lut, m, bias, ql, qc, px,
+                                   n_segments: int, period: int, ypm: int,
+                                   seg_rows: int):
+    """Plain twin of ``dct_attach_pack_segments``, on any device."""
+    layout = Layout(period, ypm)
+    coef = front.front_dct_px_plain(px, m, bias, ql, qc, layout)
+    return pack_plain(*symbolize_bits_plain(coef, lut, layout), seg_rows)
+
+
+def dct_attach_pack_segments(lut, m, bias, ql, qc, px, n_segments: int,
+                             period: int, ypm: int, seg_rows: int):
+    """Fixed-LUT DCT + quantize + zigzag + DC diff + symbolize + attach +
+    pack over S segments of pixel blocks (the port of
+    ``jpeg_tpu.kernels.fused.dct_attach_pack_segments``, K7).
+
+    px [S, nblk, 64] f32 raster-flattened pixel blocks (color-converted,
+    MCU-interleaved in the pattern of ``period`` blocks whose first
+    ``ypm`` are luma, NOT level-shifted: the -128 is in ``bias``); ``lut``
+    the [1024] int32 combined LUT; m/bias/ql/qc as kernel A's ->
+    (words [S, seg_rows * 128] uint32, total_bits [S] int32).  Kernel A's
+    pixel-block mode, then B, C and D.
+    """
+    S = n_segments
+    if S != px.shape[0]:
+        raise ValueError(f"n_segments={S} != leading dim {px.shape[0]}")
+    if S * seg_rows * 128 * 32 >= 2 ** 31:
+        raise ValueError("segment space exceeds int32 bit offsets")
+    layout = Layout(period, ypm)
+    coef = front.front_dct_px(px, m, bias, ql, qc, layout)
+    return _pack(*symbolize_bits(coef, lut, layout), S, seg_rows)
+
+
+def _xt_segments(xt: torch.Tensor, n_segments: int, period: int) -> int:
+    """Blocks per segment of the [64, nblk] ``xt``: whole 128-block tiles
+    (jpeg_tpu's contract) and whole MCUs."""
+    nblk = xt.shape[1]
+    nblk_seg = nblk // n_segments
+    if nblk_seg % 128 or nblk % n_segments:
+        raise ValueError(f"per-segment blocks {nblk_seg} not tile-aligned")
+    if nblk_seg % period:
+        raise ValueError(f"per-segment blocks {nblk_seg} are not whole "
+                         f"MCUs of {period} blocks")
+    return nblk_seg
+
+
+def dct_index_xt_plain(m, bias, ql, qc, xt, n_segments: int, period: int,
+                       ypm: int):
+    """Plain twin of ``dct_index_xt``, on any device."""
+    nblk_seg = _xt_segments(xt, n_segments, period)
+    layout = Layout(period, ypm)
+    coef = front.front_dct_px_plain(xt, m, bias, ql, qc, layout,
+                                    transposed=True)
+    pf, _ = symbolize_fields_plain(coef.view(n_segments, nblk_seg, 64), 1,
+                                   layout=layout)
+    return (pf & 1023).view(-1, 64).T.contiguous()
+
+
+def dct_index_xt(m, bias, ql, qc, xt, n_segments: int, period: int,
+                 ypm: int):
+    """DCT -> symbolize emitting only the combined-LUT index field, from
+    the [64, nblk] transposed pixel layout (the port of
+    ``jpeg_tpu.kernels.fused.dct_index_xt``, K18a).
+
+    xt [64, nblk] f32 holds S = ``n_segments`` segments of whole 128-block
+    tiles and whole MCUs (``period`` blocks, the first ``ypm`` luma);
+    each segment restarts the DC chains.  Returns idx [64, nblk] int32.
+    Kernel A's pixel-block mode reading ``xt`` as it lies, then E (its
+    histogram unused) and ``pf & 1023`` transposed back.
+    """
+    nblk_seg = _xt_segments(xt, n_segments, period)
+    layout = Layout(period, ypm)
+    coef = front.front_dct_px(xt, m, bias, ql, qc, layout, transposed=True)
+    pf, _ = symbolize_fields(coef.view(n_segments, nblk_seg, 64), 1,
+                             layout=layout)
+    return (pf & 1023).view(-1, 64).T.contiguous()

@@ -1,11 +1,13 @@
 """Reusable and one-shot encoders: the port of ``jpeg_tpu.pipelines.encode``.
 
 ``JpegEncoder`` (``encode``, ``encode_batch``, ``encode_any``,
-``encode_region``), ``encode_jpeg`` and ``encode_gray`` serve 4:2:0
-(``encode_gray``: one component) in both scan layouts, with fixed, dynamic
-and dynamic-sampled tables, any quality and restart intervals, in f32 and
-in the f64 exact mode, and give ``jpeg_tpu``'s bytes (f64: the golden
-encoder's, which ``jpeg_tpu``'s un-jitted f64 path gives too).
+``encode_region``), ``encode_jpeg`` and ``encode_gray`` serve 4:2:0, 4:2:2
+and 4:4:4 (``encode_gray``: one component) in both scan layouts, with
+fixed, dynamic and dynamic-sampled tables, any quality and restart
+intervals, in f32 and in the f64 exact mode, and give ``jpeg_tpu``'s bytes
+(f64: those of ``jpeg_tpu``'s un-jitted f64 path, at 4:2:0 the golden
+encoder's too).  Images are whole MCUs of the sampling (16x16, 16 wide x
+8 high, 8x8); ``encode_any`` pads to them.
 
 * ``"3scan"`` (the reference's three single-component scans): kernel A
   writes the coefficients in the 3-scan order (``front_dct(order="scan")``),
@@ -53,10 +55,8 @@ from ..kernels import pack as kpack
 from ..kernels.lut import build_combined_lut
 from ..ops import color, dct
 from ..ops import pack as ops_pack
-from ..ops.color import SCAN_CHROMA, SCAN_Y
-from .fast import FastBatchEncoder, check_ported, exact_coefs, host_constants
-
-_MCU = 16
+from ..ops.color import SAMPLING_GEOMETRY, SCAN_CHROMA, SCAN_Y, Y_SAMPLING
+from .fast import FastBatchEncoder, exact_coefs, host_constants
 
 
 def _device(device: str | torch.device) -> torch.device:
@@ -70,7 +70,7 @@ def _device(device: str | torch.device) -> torch.device:
 
 
 class _ScanGeometry(NamedTuple):
-    """The restart segments of a 4:2:0 image's three scans."""
+    """The restart segments of an image's three scans."""
     n_y: int         # blocks per Y segment
     segs_y: int      # Y segments per image
     n_c: int         # blocks per Cb (and per Cr) segment
@@ -79,11 +79,14 @@ class _ScanGeometry(NamedTuple):
     interval_c: int  # ... of the Cb and Cr scans
 
 
-def _scan_geometry(h: int, w: int, rows: int) -> _ScanGeometry:
+def _scan_geometry(h: int, w: int, rows: int,
+                   sampling: str = "420") -> _ScanGeometry:
     """``restart_interval_mcu_rows=rows`` counts 8-px block rows of each
-    component's own grid (0: one segment per scan)."""
-    comps = (("y", h // 8, w // 8), ("cb", h // 16, w // 16),
-             ("cr", h // 16, w // 16))
+    component's own grid (0: one segment per scan); the chroma grid is
+    the Y grid over the sampling factors."""
+    fh, fv = Y_SAMPLING[sampling]
+    ch, cw = h // (8 * fv), w // (8 * fh)
+    comps = (("y", h // 8, w // 8), ("cb", ch, cw), ("cr", ch, cw))
     for name, bh, _ in comps:
         if rows and bh % rows:
             raise ValueError(
@@ -107,7 +110,6 @@ class JpegEncoder:
     def __init__(self, config: EncodeConfig | None = None,
                  device: str | torch.device = "cuda"):
         self.config = config or EncodeConfig()
-        check_ported(self.config)
         self.device = _device(device)
         self._luma_q, self._chroma_q = T.quant_tables(self.config.quality)
         self._fixed = (fixed_tables() if self.config.huffman == "fixed"
@@ -138,14 +140,19 @@ class JpegEncoder:
             rgb = rgb.to(torch.uint8)
         return rgb.to(self.device)
 
+    def _mcu(self) -> tuple[int, int]:
+        """(width, height) of the sampling's MCU."""
+        return SAMPLING_GEOMETRY[self.config.subsampling][:2]
+
     def _check(self, x: torch.Tensor) -> None:
         """Validate the [..., H, W, 3] image(s) ``x`` as ``encode`` does."""
         h, w = x.shape[-3], x.shape[-2]
         if h == 0 or w == 0:
             raise ValueError("image has zero pixels")
-        if h % _MCU or w % _MCU:
+        mcu_w, mcu_h = self._mcu()
+        if h % mcu_h or w % mcu_w:
             raise ValueError(
-                f"dimensions must be multiples of {_MCU}x{_MCU}, got "
+                f"dimensions must be multiples of {mcu_w}x{mcu_h}, got "
                 f"{w}x{h}; pad with jpeg_tpu.io.editimage, or use encode_any")
         if self.config.debug_checks:
             from ..utils.guards import validate_encode_inputs
@@ -164,9 +171,15 @@ class JpegEncoder:
         """The cached interleaved encoder of an h x w image."""
         if (h, w) not in self._fast_cache:
             cfg = self.config
-            if cfg.huffman == "dynamic-sampled" and \
-                    self._resolve_engine() == "xla":
+            xla = self._resolve_engine() == "xla"
+            if cfg.huffman == "dynamic-sampled" and xla:
                 cfg = dataclasses.replace(cfg, huffman="dynamic")
+            rows = cfg.restart_interval_mcu_rows
+            my = h // 8
+            if xla and cfg.subsampling != "420" and rows and my % rows:
+                # the message of jpeg_tpu's XLA engine at 4:2:2 and 4:4:4
+                raise ValueError(f"restart_interval_mcu_rows={rows} must "
+                                 f"divide 8px MCU rows {my}")
             self._fast_cache[h, w] = FastBatchEncoder(h, w, cfg,
                                                       device=self.device)
         return self._fast_cache[h, w]
@@ -176,16 +189,18 @@ class JpegEncoder:
     def _encode_3scan(self, x: torch.Tensor, h: int, w: int) -> list[bytes]:
         """[B, H, W*3] u8 -> B files of three single-component scans."""
         rows = self.config.restart_interval_mcu_rows
-        g = _scan_geometry(h, w, rows)
+        sampling = self.config.subsampling
+        g = _scan_geometry(h, w, rows, sampling)
         B, c = x.shape[0], self._c
         if self.config.dtype == "float64":
             zz_y, zz_cb, zz_cr = exact_coefs(x.view(B, h, w, 3),
-                                             self._luma_q, self._chroma_q)
+                                             self._luma_q, self._chroma_q,
+                                             sampling)
             coef = torch.cat([zz_y.reshape(-1, 64),
                               torch.cat([zz_cb, zz_cr], 1).reshape(-1, 64)])
         else:
             coef = front.front_dct(x, c["m"], c["bias"], c["ql"], c["qc"],
-                                   order="scan")
+                                   order="scan", sampling=sampling)
         n_y = B * g.segs_y * g.n_y
         groups = ((coef[:n_y].view(B * g.segs_y, g.n_y, 64), SCAN_Y),
                   (coef[n_y:].view(B * 2 * g.segs_c, g.n_c, 64), SCAN_CHROMA))
@@ -214,7 +229,7 @@ class JpegEncoder:
         files = []
         for b in range(B):
             header = jfif.headers(w, h, self._luma_q, self._chroma_q,
-                                  tables[b], y_sampling=(2, 2))
+                                  tables[b], y_sampling=Y_SAMPLING[sampling])
             ys = y_segs[b * g.segs_y:(b + 1) * g.segs_y]
             cb = c_segs[2 * b * g.segs_c:(2 * b + 1) * g.segs_c]
             cr = c_segs[(2 * b + 1) * g.segs_c:(2 * b + 2) * g.segs_c]
@@ -257,7 +272,8 @@ class JpegEncoder:
         if not torch.is_tensor(rgb):
             rgb = np.asarray(rgb)
         h, w = rgb.shape[0], rgb.shape[1]
-        if h % _MCU == 0 and w % _MCU == 0:
+        mcu_w, mcu_h = self._mcu()
+        if h % mcu_h == 0 and w % mcu_w == 0:
             return self.encode(rgb)
         enc = self
         if self.config.scan_layout != "interleaved":
@@ -268,7 +284,7 @@ class JpegEncoder:
                 self._any_encoder = JpegEncoder(cfg, device=self.device)
             enc = self._any_encoder
         padded = rgb.cpu().numpy() if torch.is_tensor(rgb) else rgb
-        padded = np.pad(padded, ((0, -h % _MCU), (0, -w % _MCU), (0, 0)),
+        padded = np.pad(padded, ((0, -h % mcu_h), (0, -w % mcu_w), (0, 0)),
                         mode="edge")
         return jfif.patch_sof_dims(enc.encode(padded), w, h)
 

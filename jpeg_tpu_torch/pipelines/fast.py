@@ -1,8 +1,12 @@
 """Batched interleaved encoder: the port of ``jpeg_tpu.pipelines.fast``.
 
-``FastBatchEncoder`` serves the 4:2:0 interleaved batch encode with
-fixed, dynamic and dynamic-sampled Huffman tables, in f32, and in the f64
-exact mode with fixed and dynamic tables.
+``FastBatchEncoder`` serves the interleaved batch encode at 4:2:0, 4:2:2
+and 4:4:4 (``EncodeConfig.subsampling``) with fixed, dynamic and
+dynamic-sampled Huffman tables, in f32, and in the f64 exact mode with
+fixed and dynamic tables.  The sampling sets the MCU (16x16 of 6 blocks,
+16 wide x 8 high of 4, 8x8 of 3: ``ops.color.SAMPLING_GEOMETRY``), kernel
+A's color mode and the block layout B and E read; restart intervals
+count rows of that MCU.
 
 * Fixed tables: the device step is four kernels (``kernels.front`` A,
   ``kernels.fused`` B, C, D): u8 pixels -> coefficients -> Huffman fields
@@ -26,7 +30,9 @@ header.
 A restart segment is a contiguous range of MCU rows, so a batch of
 ``B`` images with ``S`` segments each is ``B * S`` segments in a row; the
 TPU's slab padding, pseudo-segments and phantom blocks have no
-counterpart here.
+counterpart here.  Nor has its pixel route: where ``jpeg_tpu`` cannot
+take its Pallas front (4:4:4 widths that are a multiple of 8 but not of
+16), kernel A reads the pixels all the same, with the same bytes.
 """
 from __future__ import annotations
 
@@ -42,10 +48,8 @@ from ..kernels import front, fused
 from ..kernels import pack as kpack
 from ..kernels.lut import NULL_INDEX, build_combined_lut
 from ..ops import color, dct
-from ..ops.color import PERIOD, Y_PER_MCU
+from ..ops.color import LAYOUTS, SAMPLING_GEOMETRY, Y_SAMPLING
 from ..ops.sample import sample_mask
-
-_MCU = 16  # 4:2:0 MCUs are 16x16 pixels
 
 
 def _possible_symbols():
@@ -81,41 +85,37 @@ def host_constants(quality: int | None) -> dict[str, np.ndarray]:
             "lut": build_combined_lut(fixed_tables())}
 
 
-def check_ported(config: EncodeConfig) -> None:
-    """Raise NotImplementedError for the settings the port does not serve
-    yet, naming their ROADMAP item."""
-    if config.subsampling != "420":
-        raise NotImplementedError(
-            f"subsampling={config.subsampling!r} is not ported yet "
-            f"(ROADMAP queue 1 item 3, main-path geometries: 4:2:2 and "
-            f"4:4:4)")
-
-
 def exact_coefs(rgb: torch.Tensor, luma_q: np.ndarray,
-                chroma_q: np.ndarray):
+                chroma_q: np.ndarray, sampling: str = "420"):
     """[B, H, W, 3] u8 -> the f64 exact mode's int16 zig-zag coefs of each
-    component, (y [B, H/8 * W/8, 64], cb [B, H/16 * W/16, 64], cr), every
-    component's blocks in raster order (the golden encoder's stages)."""
-    y, cb, cr = color.rgb_to_ycbcr_420(rgb, dtype=torch.float64)
+    component, (y [B, H/8 * W/8, 64], cb [B, n_chroma_blocks, 64], cr),
+    every component's blocks in raster order (the golden encoder's
+    stages, at ``sampling``'s chroma grid)."""
+    y, cb, cr = color.rgb_to_ycbcr(rgb, sampling, dtype=torch.float64)
     return tuple(dct.dct_quantize_exact(color.to_blocks(plane), q)
                  for plane, q in ((y, luma_q), (cb, chroma_q),
                                   (cr, chroma_q)))
 
 
 def analyze_zz(rgb: torch.Tensor, luma_q: np.ndarray, chroma_q: np.ndarray,
-               mcus_x: int, mcus_y: int, n_segs: int):
+               mcus_x: int, mcus_y: int, n_segs: int,
+               sampling: str = "420"):
     """[B, H, W, 3] u8 -> the f64 exact mode's un-diffed interleaved
     coefficients (the port of ``jpeg_tpu.pipelines.fast.analyze_zz``).
 
-    Returns seq [B * S, nblk, 64] int16 in the interleaved MCU order (Y00
-    Y01 Y10 Y11 Cb Cr), dc_diff [B * S, nblk] int32 (each component's DC
-    chain restarts in every segment) and is_luma [B * S, nblk] int32.
+    Returns seq [B * S, nblk, 64] int16 in the interleaved MCU order of
+    ``sampling`` (Y blocks, Cb, Cr), dc_diff [B * S, nblk] int32 (each
+    component's DC chain restarts in every segment) and is_luma [B * S,
+    nblk] int32.
     """
-    zz_y, zz_cb, zz_cr = exact_coefs(rgb, luma_q, chroma_q)
+    zz_y, zz_cb, zz_cr = exact_coefs(rgb, luma_q, chroma_q, sampling)
     B, S = zz_y.shape[0], n_segs
     mps = mcus_x * mcus_y // n_segs
-    y_mcu = zz_y.reshape(B, mcus_y, 2, mcus_x, 2, 64).transpose(2, 3)
-    parts = [y_mcu.reshape(B, S, mps, Y_PER_MCU, 64),
+    period, ypm = LAYOUTS[sampling]
+    y_mcu = zz_y
+    if sampling == "420":  # at 4:2:2, 4:4:4 raster order is MCU order
+        y_mcu = zz_y.reshape(B, mcus_y, 2, mcus_x, 2, 64).transpose(2, 3)
+    parts = [y_mcu.reshape(B, S, mps, ypm, 64),
              zz_cb.reshape(B, S, mps, 1, 64),
              zz_cr.reshape(B, S, mps, 1, 64)]
 
@@ -124,12 +124,12 @@ def analyze_zz(rgb: torch.Tensor, luma_q: np.ndarray, chroma_q: np.ndarray,
         prev = torch.nn.functional.pad(dc[..., :-1], (1, 0))
         return (dc - prev).reshape(part.shape[:-1])
 
-    seq = torch.cat(parts, dim=3).reshape(B * S, mps * PERIOD, 64)
+    seq = torch.cat(parts, dim=3).reshape(B * S, mps * period, 64)
     dc_diff = torch.cat([dc_diff_of(p) for p in parts], dim=3)
-    pattern = torch.tensor([1] * Y_PER_MCU + [0] * (PERIOD - Y_PER_MCU),
+    pattern = torch.tensor([1] * ypm + [0] * (period - ypm),
                            dtype=torch.int32, device=seq.device)
     is_luma = pattern.repeat(B * S, mps)
-    return seq, dc_diff.reshape(B * S, mps * PERIOD), is_luma
+    return seq, dc_diff.reshape(B * S, mps * period), is_luma
 
 
 class FastBatchEncoder:
@@ -153,12 +153,14 @@ class FastBatchEncoder:
                                              huffman="fixed")
         if self.config.scan_layout != "interleaved":
             raise ValueError("FastBatchEncoder is interleaved-only")
-        check_ported(self.config)
-        if height % _MCU or width % _MCU:
+        self.sampling = self.config.subsampling
+        mcu_w, mcu_h, _ = SAMPLING_GEOMETRY[self.sampling]
+        self.layout = LAYOUTS[self.sampling]
+        if height % mcu_h or width % mcu_w:
             raise ValueError(f"dimensions must be multiples of "
-                             f"{_MCU}x{_MCU}, got {width}x{height}")
+                             f"{mcu_w}x{mcu_h}, got {width}x{height}")
         self.height, self.width = height, width
-        self.mcus_x, self.mcus_y = width // _MCU, height // _MCU
+        self.mcus_x, self.mcus_y = width // mcu_w, height // mcu_h
         nm = self.mcus_x * self.mcus_y
         if segs_per_image is None:
             rows = self.config.restart_interval_mcu_rows or self.mcus_y
@@ -172,7 +174,7 @@ class FastBatchEncoder:
                              f"MCU rows {self.mcus_y}")
         self.n_segs = segs_per_image
         self.mcus_per_segment = nm // segs_per_image
-        self.blocks_per_seg = self.mcus_per_segment * PERIOD
+        self.blocks_per_seg = self.mcus_per_segment * self.layout.period
         self.seg_rows = kpack.rows_per_segment(self.blocks_per_seg * 64)
         if self.seg_rows * 128 * 32 >= 2 ** 31:
             raise ValueError("segment space exceeds int32 bit offsets")
@@ -206,8 +208,8 @@ class FastBatchEncoder:
                              " (exact mode exists for byte parity — "
                              "sampling would defeat it)")
         self._mask = (torch.from_numpy(sample_mask(
-            self.height, self.width, self.n_segs)).to(self.device)
-            if self._sampled else None)
+            self.height, self.width, self.n_segs, self.sampling))
+            .to(self.device) if self._sampled else None)
         self._interval = self.mcus_per_segment if self.n_segs > 1 else 0
         self._header = (self._file_header(self._fixed)
                         if self._fixed is not None else None)
@@ -226,7 +228,7 @@ class FastBatchEncoder:
                 self._lut, *self._analyze_zz(x), B * S, self.seg_rows)
         else:
             value, nbits, bits = fused.symbolize_bits(self._coefs(x),
-                                                      self._lut)
+                                                      self._lut, self.layout)
             words, totals = kpack.pack_segments(value, nbits, B * S,
                                                 self.seg_rows, bits)
         return words.view(B, S, -1), totals.view(B, S)
@@ -287,7 +289,8 @@ class FastBatchEncoder:
             B = x.shape[0]
             return fused.symbolize_segments(*self._analyze_zz(x),
                                             B * self.n_segs, B)
-        return fused.symbolize_fields(self._coefs(x), x.shape[0], self._mask)
+        return fused.symbolize_fields(self._coefs(x), x.shape[0], self._mask,
+                                      self.layout)
 
     @staticmethod
     def _build_tables_batch(h_np: np.ndarray, smooth: bool = False):
@@ -336,7 +339,8 @@ class FastBatchEncoder:
 
     def _coefs(self, x: torch.Tensor) -> torch.Tensor:
         """Kernel A: [B, H, W*3] u8 -> [B*S, nblk, 64] int16 coefficients."""
-        coef = front.front_dct(x, self._m, self._bias, self._ql, self._qc)
+        coef = front.front_dct(x, self._m, self._bias, self._ql, self._qc,
+                               sampling=self.sampling)
         return coef.view(x.shape[0] * self.n_segs, self.blocks_per_seg, 64)
 
     def _analyze_zz(self, x: torch.Tensor):
@@ -344,13 +348,14 @@ class FastBatchEncoder:
         is_luma) of the batch's B * S segments."""
         rgb = x.view(x.shape[0], self.height, self.width, 3)
         return analyze_zz(rgb, self._luma_q, self._chroma_q, self.mcus_x,
-                          self.mcus_y, self.n_segs)
+                          self.mcus_y, self.n_segs, self.sampling)
 
     def _file_header(self, tables: dict[str, HuffmanTable]) -> bytes:
         """SOI .. SOS header of one file with these Huffman tables."""
         return jfif.headers(
             self.width, self.height, self._luma_q, self._chroma_q, tables,
-            restart_interval=self._interval, y_sampling=(2, 2)
+            restart_interval=self._interval,
+            y_sampling=Y_SAMPLING[self.sampling]
         ) + jfif.sos_header_interleaved()
 
     def _check_batch(self, rgbs) -> torch.Tensor:

@@ -28,17 +28,14 @@ _MESSAGES = ("quantizer entries must be >= 1 (divide hazard)",
 
 def validate_encode_inputs(rgb, luma_q, chroma_q,
                            sampling: str = "420") -> None:
-    """Run the quant-path sanitizers on [..., H, W, 3] u8 ``rgb``; raise
-    ValueError with the message of the first check that fails (the checks
-    run per component, Y then Cb then Cr, each in the order above)."""
-    if sampling != "420":
-        raise NotImplementedError(
-            f"subsampling={sampling!r} is not ported yet (ROADMAP queue 1 "
-            f"item 3, main-path geometries: 4:2:2 and 4:4:4)")
+    """Run the quant-path sanitizers on [..., H, W, 3] u8 ``rgb`` at chroma
+    subsampling ``sampling`` ("420", "422" or "444"); raise ValueError
+    with the message of the first check that fails (the checks run per
+    component, Y then Cb then Cr, each in the order above)."""
     set_exact_matmul()
     rgb = torch.as_tensor(rgb)
     dev = rgb.device
-    y, cb, cr = color.rgb_to_ycbcr_420(rgb.to(torch.uint8))
+    y, cb, cr = color.rgb_to_ycbcr(rgb.to(torch.uint8), sampling)
     m, bias = T.dct_flat_basis()
     md = torch.from_numpy(np.asarray(m, np.float32)).to(dev)
     bd = torch.from_numpy(np.asarray(bias, np.float32)).to(dev)

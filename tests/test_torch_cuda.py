@@ -5,8 +5,9 @@ They skip, with a reason, where no CUDA device is present; on the card
 suite's conftest imports jax, which the card machine lacks) each kernel
 must equal its plain twin exactly (in every layout and mode, the explicit
 modes of B and E too), and the encoders' bytes must equal the CPU path's,
-in every Huffman mode (f64 exact mode: the golden encoder's as well).  ``chip_smoke.py`` runs the same
-checks at full size.  No jax here."""
+in every Huffman mode and chroma subsampling (f64 exact mode: the golden
+encoder's as well).  ``chip_smoke.py`` runs the same checks at full size.
+No jax here."""
 import numpy as np
 import pytest
 import torch
@@ -16,6 +17,7 @@ from jpeg_tpu_torch import (EncodeConfig, FastBatchEncoder, JpegEncoder,
 from jpeg_tpu_torch.golden import encoder as golden
 from jpeg_tpu_torch.kernels import (fused, front, launch_counts,
                                     reset_launch_counts)
+from jpeg_tpu_torch.ops import color
 from jpeg_tpu_torch.ops.color import SCAN_CHROMA, SCAN_Y
 from jpeg_tpu_torch.kernels.pack import rows_per_segment
 from jpeg_tpu_torch.ops.dct import set_exact_matmul
@@ -201,3 +203,58 @@ def test_f64_card_bytes_equal_golden_and_cpu(dev, mode):
     plane = np.ascontiguousarray(imgs[1, :, :, 0])
     assert encode_gray(plane, cfg3, device=dev) == \
         encode_gray(plane, cfg3, device="cpu")
+
+
+@pytest.mark.parametrize("sampling", ["422", "444"])
+def test_sampling_kernels_equal_plain_twins(dev, sampling):
+    """A's 4:2:2 / 4:4:4 color modes in both orders, its pixel-block mode
+    in both layouts, and K7 (A px + B + C + D) and K18a (A px + E) at
+    heights (4:2:2) and widths (4:4:4) off a multiple of 16."""
+    h, w = (72, 128) if sampling == "422" else (48, 136)
+    imgs = synthetic_batch(np.random.default_rng(47), 2, h, w)
+    x = torch.from_numpy(imgs).to(dev).reshape(2, h, w * 3)
+    c = {k: torch.from_numpy(v).to(dev)
+         for k, v in host_constants(None).items()}
+    consts = (c["m"], c["bias"], c["ql"], c["qc"])
+    for order in ("mcu", "scan"):
+        assert torch.equal(
+            front.front_dct(x, *consts, order=order, sampling=sampling),
+            front.front_dct_plain(x, *consts, order=order,
+                                  sampling=sampling))
+    layout = color.LAYOUTS[sampling]
+    px = torch.from_numpy(imgs).to(dev)
+    px = color.mcu_blocks(*color.rgb_to_ycbcr(px, sampling), sampling)
+    coef = front.front_dct_px(px, *consts, layout)
+    assert torch.equal(coef, front.front_dct_px_plain(px, *consts, layout))
+    assert torch.equal(coef, front.front_dct(x, *consts, sampling=sampling))
+    xt = px.reshape(-1, 64).T.contiguous()
+    assert torch.equal(front.front_dct_px(xt, *consts, layout,
+                                          transposed=True).view_as(coef), coef)
+    seg_rows = rows_per_segment(px.shape[1] * 64)
+    got = fused.dct_attach_pack_segments(c["lut"], *consts, px, 2, *layout,
+                                         seg_rows)
+    want = fused.dct_attach_pack_segments_plain(c["lut"], *consts, px, 2,
+                                                *layout, seg_rows)
+    for a, b in zip(got, want):
+        assert torch.equal(_i32(a), _i32(b))
+    n = 128 * layout.period  # whole tiles and whole MCUs
+    xt = xt[:, :n].contiguous()
+    assert torch.equal(
+        fused.dct_index_xt(*consts, xt, 1, *layout),
+        fused.dct_index_xt_plain(*consts, xt, 1, *layout))
+
+
+@pytest.mark.parametrize("sampling", ["422", "444"])
+@pytest.mark.parametrize("mode", ["fixed", "dynamic", "dynamic-sampled"])
+def test_sampling_card_bytes_equal_cpu(dev, sampling, mode):
+    h, w = (40, 64) if sampling == "422" else (48, 56)
+    imgs = synthetic_batch(np.random.default_rng(49), 2, h, w)
+    cfg = EncodeConfig(scan_layout="interleaved", huffman=mode,
+                       subsampling=sampling, restart_interval_mcu_rows=1)
+    reset_launch_counts()
+    got = FastBatchEncoder(h, w, cfg, device=dev).encode_batch(imgs)
+    assert launch_counts()["front_dct"] == 1
+    assert got == FastBatchEncoder(h, w, cfg, device="cpu").encode_batch(imgs)
+    cfg3 = EncodeConfig(huffman=mode, subsampling=sampling)
+    assert JpegEncoder(cfg3, device=dev).encode(imgs[0]) == \
+        JpegEncoder(cfg3, device="cpu").encode(imgs[0])

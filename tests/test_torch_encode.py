@@ -276,14 +276,15 @@ def test_gray_shape_errors_match():
                     lambda: encode_gray(plane, device="cpu"))
 
 
-@pytest.mark.parametrize("kw,item", [(dict(subsampling="422"), "item 3"),
-                                     (dict(subsampling="444"), "item 3")])
-def test_unported_settings_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        JpegEncoder(EncodeConfig(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        encode_jpeg(np.zeros((16, 16, 3), np.uint8), EncodeConfig(**kw),
-                    device="cpu")
+@pytest.mark.parametrize("kw", [dict(subsampling="422"),
+                                dict(subsampling="444")])
+def test_other_subsamplings_match_jax(kw):
+    """4:2:2 and 4:4:4 through ``JpegEncoder`` and ``encode_jpeg`` (more
+    in ``test_torch_sampling.py``)."""
+    img = synthetic_images(27, 1, 32, 32)[0]
+    want = jencode.JpegEncoder(JaxConfig(**kw)).encode(img)
+    assert JpegEncoder(EncodeConfig(**kw), device="cpu").encode(img) == want
+    assert encode_jpeg(img, EncodeConfig(**kw), device="cpu") == want
     # a grayscale plane has no chroma: subsampling plays no part
     gray = np.zeros((16, 16), np.uint8)
     assert encode_gray(gray, EncodeConfig(**kw), device="cpu") == \

@@ -357,13 +357,19 @@ def test_f64_dynamic_sampled_batch_encoder_raises_like_jpeg_tpu():
 
 
 @pytest.mark.parametrize("sampling", ["422", "444"])
-def test_f64_with_other_subsampling_raises_item_3(sampling):
-    cfg = EncodeConfig(dtype="float64", subsampling=sampling)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        JpegEncoder(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        encode_jpeg(np.zeros((16, 16, 3), np.uint8), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        FastBatchEncoder(16, 16, EncodeConfig(
-            dtype="float64", subsampling=sampling,
-            scan_layout="interleaved"), device="cpu")
+def test_f64_with_other_subsampling_matches(sampling):
+    """f64 at 4:2:2 and 4:4:4 against jpeg_tpu's un-jitted f64
+    ``JpegEncoder`` (the golden encoder is 4:2:0 only): ``JpegEncoder``
+    and ``encode_jpeg`` in the 3-scan layout, and ``FastBatchEncoder``'s
+    exact mode with a restart every MCU row against the interleaved
+    layout."""
+    img = synthetic_images(57, 1, 32, 32)[0]
+    cfg = dict(dtype="float64", subsampling=sampling)
+    want = jencode.JpegEncoder(JaxConfig(**cfg)).encode(img)
+    assert JpegEncoder(EncodeConfig(**cfg), device="cpu").encode(img) == want
+    assert encode_jpeg(img, EncodeConfig(**cfg), device="cpu") == want
+    kw = dict(cfg, scan_layout="interleaved", restart_interval_mcu_rows=1)
+    want = jencode.JpegEncoder(JaxConfig(**kw)).encode(img)
+    got = FastBatchEncoder(32, 32, EncodeConfig(**kw),
+                           device="cpu").encode_batch(img[None])
+    assert got == [want]

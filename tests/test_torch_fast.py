@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from jpeg_tpu.core.types import EncodeConfig as JaxConfig
+from jpeg_tpu.pipelines.encode import JpegEncoder as JaxJpegEncoder
 from jpeg_tpu.pipelines.fast import FastBatchEncoder as JaxEncoder
 from jpeg_tpu_torch import EncodeConfig, FastBatchEncoder
 from jpeg_tpu_torch.convert import constants_from_jax
@@ -128,11 +129,15 @@ def test_constructor_errors_match_jax(args):
 @pytest.mark.parametrize("cfg", [dict(subsampling="422"),
                                  dict(subsampling="444"),
                                  dict(dtype="float64", subsampling="444")])
-def test_unported_settings_name_their_roadmap_item(cfg):
-    base = dict(scan_layout="interleaved", huffman="fixed")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        FastBatchEncoder(128, 128, EncodeConfig(**{**base, **cfg}),
-                         device="cpu")
+def test_other_subsamplings_match_jax_interleaved(cfg):
+    """4:2:2, 4:4:4 and f64 4:4:4 against jpeg_tpu's interleaved
+    ``JpegEncoder`` on its XLA engine (f64: un-jitted); the interpret-mode
+    FastBatchEncoder cases are in ``test_torch_sampling.py``."""
+    kw = dict(scan_layout="interleaved", huffman="fixed", **cfg)
+    img = synthetic_images(29, 1, 32, 32)[0]
+    want = JaxJpegEncoder(JaxConfig(engine="xla", **kw)).encode(img)
+    enc = FastBatchEncoder(32, 32, EncodeConfig(**kw), device="cpu")
+    assert enc.encode_batch(img[None]) == [want]
 
 
 def test_batch_layouts_and_shape_errors(jax_ref):
@@ -175,6 +180,7 @@ def test_cpu_wrappers_run_the_plain_twins_and_launch_nothing():
     assert torch.equal(words.view(torch.int32), plain.view(torch.int32))
     assert launch_counts() == dict.fromkeys(launch_counts(), 0)
     assert set(launch_counts()) == {
-        "front_dct", "symbolize_bits", "symbolize_bits_explicit",
+        "front_dct", "front_dct_px", "symbolize_bits",
+        "symbolize_bits_explicit",
         "segment_offsets", "place", "symbolize_fields",
         "symbolize_fields_explicit", "attach_pf"}

@@ -13,7 +13,9 @@ kernel it replaces, run in interpret mode on the CPU:
   + D against ``attach_pack_pf`` (K3) and ``attach_pack_grouped`` (K11);
 * the 3-scan path: ``kernels.lut.attach`` (F) against ``lut.attach``
   (K14), ``attach_grouped`` against K18c, and ``kernels.pack.
-  pack_segments`` (C + D) against ``pack.pack_segments`` (K15).
+  pack_segments`` (C + D) against ``pack.pack_segments`` (K15);
+* C + D against the row-scattered windows of ``pack.block_windows``
+  (K18d, the blocks-on-sublanes form of K15's kernel).
 
 Every comparison is exact equality (integers, or f32 small integers)."""
 import numpy as np
@@ -412,3 +414,34 @@ def test_pack_segments_matches_kernel_pack(n_segs):
     assert torch.equal(again.view(torch.int32), words.view(torch.int32))
     with pytest.raises(ValueError, match="n_segments"):
         pack_port.pack_segments(value, nbits, n_segs + 1, seg_rows)
+
+
+@pytest.mark.parametrize("seed", [2, 3])
+def test_offsets_and_place_match_block_windows(seed):
+    """K18d ``pack.block_windows`` -> ``_pack_kernel`` on seeded fields of
+    2 segments of 64 blocks: its (r0, r1) windows, row-scattered into the
+    words as ``pack_segments`` scatters ``block_windows_t``'s, against C
+    + D (``segment_offsets_plain``, ``place_plain``)."""
+    rng = np.random.default_rng(seed)
+    S, nblk = 2, 64
+    nbits = rng.integers(0, 28, (S, nblk, 64)).astype(np.uint8)
+    nbits[rng.random((S, nblk, 64)) < 0.6] = 0
+    value = (rng.integers(0, 1 << 27, (S, nblk, 64))
+             & ((1 << nbits.astype(np.int64)) - 1)).astype(np.uint32)
+    bits = nbits.astype(np.int32).sum(-1, dtype=np.int32)
+    seg_rows = rows_per_segment(nblk * 64)
+    offs, totals = fused.segment_offsets_plain(torch.from_numpy(bits))
+    words = fused.place_plain(torch.from_numpy(value),
+                              torch.from_numpy(nbits), offs, seg_rows * 128)
+    goff = (offs.numpy() + (np.arange(S) * seg_rows * 128 * 32)[:, None])
+    r0, r1 = jpack.block_windows(jnp.asarray(value.reshape(-1, 64)),
+                                 jnp.asarray(nbits.reshape(-1, 64)),
+                                 jnp.asarray(goff.reshape(-1)),
+                                 interpret=True)
+    rows = goff.reshape(-1) >> 12
+    want = np.zeros((S * seg_rows + 1, 128), np.uint32)
+    np.bitwise_or.at(want, rows, np.asarray(r0).view(np.uint32))
+    np.bitwise_or.at(want, rows + 1, np.asarray(r1).view(np.uint32))
+    np.testing.assert_array_equal(totals.numpy(), bits.sum(-1))
+    np.testing.assert_array_equal(
+        words.numpy(), want[:S * seg_rows].reshape(S, seg_rows * 128))
