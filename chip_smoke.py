@@ -6,7 +6,7 @@
 Phases, each of which raises (and so exits non-zero) on any failure:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
-   the build of the nine CUDA kernels (six sources) from
+   the build of the ten CUDA kernels (seven sources) from
    ``jpeg_tpu_torch/csrc`` and of the port's native host library (g++);
 2. every kernel against its plain PyTorch twin on the card, at the shapes
    of a 16x640x640 batch (E with and without the dynamic-sampled mask, F
@@ -45,6 +45,18 @@ Phases, each of which raises (and so exits non-zero) on any failure:
       jpeg_tpu takes its pixel route); ``JpegEncoder.encode`` 3-scan at
       1920x1280 of each; and the f64 exact mode of that ``encode``.  Every
       file must equal the CPU plain path's.
+   e. decode (``decode_jpeg_batch`` and ``decode_jpeg``, engine "device",
+      so an ineligible stream raises): first kernel G against its plain
+      twin on the first blocks of a few lanes, clean and corrupted; then
+      the port's own restart files, encoded on the card: 16x640x640 4:2:0
+      r1 (640 segments), 4x1920x1280 r1, 2x1920x1088 r17 (4 segments per
+      image, which jpeg_tpu sends to its host decoder), 4:2:2 2x1920x1080
+      r27, 4:4:4 4x1080x1080 r1, the Y scan of a 3-scan 1920x1280 file
+      with restarts (a gray stream), and one ``decode_jpeg`` of a
+      1920x1280 r1 file.  Kernel G's coefficients must equal the native
+      host decoder's exactly, and the pixels must be within jpeg_tpu's
+      device-vs-host bound (max |diff| <= 2, > 99.9 % within 1) of the CPU
+      path's reconstruction and of the golden decoder's.
    The JPEG bytes must equal those of the same call on the CPU (the plain
    twins; a batch of 3a-3c compares its first 4 images, since each
    image's tables are its own), the first file of each run must decode
@@ -61,8 +73,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    and C + D, at the shapes of a 1920x1280 3-scan Y scan: the ports of
    K14 and K15), and each f64 case's call time, device time by kernel,
    idle share and the share of the device time spent in the f64
-   analysis (the eager torch ops before the kernels); and each 4:2:2 and
-   4:4:4 case of 3d: its call ms, device time by kernel and idle share.
+   analysis (the eager torch ops before the kernels); each 4:2:2 and
+   4:4:4 case of 3d: its call ms, device time by kernel and idle share;
+   each decode case of 3e: its call ms, device time, kernel G's part and
+   idle share; kernel G alone at the 16x640x640 lanes with its bound, its
+   twin at the reduced input, and the host entropy route on those files.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 the JSON verdict.  Inputs are synthetic images (smooth gradients plus hard
@@ -83,16 +98,20 @@ import numpy as np
 import torch
 
 from jpeg_tpu_torch import (Area, EncodeConfig, FastBatchEncoder, JpegEncoder,
-                            _build, encode_gray, native)
+                            _build, decode_jpeg, decode_jpeg_batch,
+                            encode_gray, native)
+from jpeg_tpu_torch.bitstream import jfif
 from jpeg_tpu_torch.golden import decoder as golden
 from jpeg_tpu_torch.golden import encoder as golden_enc
 from jpeg_tpu_torch.kernels import (fused, front, launch_counts,
                                     reset_launch_counts)
+from jpeg_tpu_torch.kernels import huffdec as khd
 from jpeg_tpu_torch.kernels import pack as kpack
 from jpeg_tpu_torch.ops import color
 from jpeg_tpu_torch.ops.color import (LAYOUTS, SAMPLING_GEOMETRY, SCAN_CHROMA,
                                       SCAN_Y)
 from jpeg_tpu_torch.ops.dct import set_exact_matmul
+from jpeg_tpu_torch.pipelines import decode as pdec
 from jpeg_tpu_torch.pipelines.fast import analyze_zz
 
 # (batch, height, width, restart_interval_mcu_rows)
@@ -126,10 +145,24 @@ SAMPLING_GEOMETRIES = [
     ("444", 4, 1080, 1080, 0)]
 SAMPLING_MODES = ["fixed", "dynamic"]
 SAMPLING_KERNEL_BATCH = (4, 1280, 1920)
-LABEL = {"420": "4:2:0", "422": "4:2:2", "444": "4:4:4"}
+LABEL = {"420": "4:2:0", "422": "4:2:2", "444": "4:4:4", "gray": "gray"}
+# decode (phase 3e): the port's interleaved restart files (sampling, batch,
+# height, width, restart rows, Huffman mode), decoded by decode_jpeg_batch;
+# the Y scan of a 3-scan JpegEncoder file (height, width, restart block
+# rows) as a gray stream; one decode_jpeg of a 1920x1280 r1 file
+DECODE_GEOMETRIES = [
+    ("420", 16, 640, 640, 1, "dynamic"), ("420", 4, 1280, 1920, 1, "fixed"),
+    ("420", 2, 1088, 1920, 17, "dynamic"), ("422", 2, 1080, 1920, 27, "fixed"),
+    ("444", 4, 1080, 1080, 1, "dynamic")]
+DECODE_GRAY = (1280, 1920, 4)
+DECODE_ONE = ("420", 1, 1280, 1920, 1, "dynamic")
+# jpeg_tpu's device-vs-host reconstruction bound (its
+# tests/test_device_decode.py:18): f32 sums in another order
+RGB_MAX_DIFF, RGB_WITHIN_1 = 2, 0.999
 # the CUDA kernels by their names in a profile, and the copies
 OWN_KERNELS = ("front_dct", "symbolize_bits_kernel", "segment_offsets",
-               "place_kernel", "symbolize_fields_kernel", "attach_pf")
+               "place_kernel", "symbolize_fields_kernel", "attach_pf",
+               "decode_segments_kernel")
 
 # kernel -> (source, the TPU kernels it replaces: file:line of pallas_call)
 KERNEL_INFO = {
@@ -192,6 +225,8 @@ KERNEL_INFO = {
     "dct_index_xt": ("jpeg_tpu_torch/csrc/front_dct.cu + "
                      "symbolize_fields.cu (A px + E, kernels/fused.py::"
                      "dct_index_xt)", "jpeg_tpu/kernels/fused.py:688 (K18a)"),
+    "decode_segments": ("jpeg_tpu_torch/csrc/huffdec.cu",
+                        "jpeg_tpu/kernels/huffdec.py:853 (K16)"),
 }
 
 # NVIDIA's H100 SXM data sheet: HBM3 rate, FP32 rate outside the tensor
@@ -242,12 +277,13 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def cuda_ms(fn, runs: int, inner: int = 10) -> float:
+def cuda_ms(fn, runs: int, inner: int = 10, warm: int = 3) -> float:
     """CUDA-event time of one call of ``fn``, in ms: the median over
-    ``runs`` warm runs of ``inner`` back-to-back calls, divided by
-    ``inner`` (the calls queue on the stream, so the host's launch work
-    overlaps the device's unless the device is the faster of the two)."""
-    for _ in range(3):
+    ``runs`` runs of ``inner`` back-to-back calls after ``warm`` calls,
+    divided by ``inner`` (the calls queue on the stream, so the host's
+    launch work overlaps the device's unless the device is the faster of
+    the two)."""
+    for _ in range(warm):
         fn()
     times = []
     for _ in range(runs):
@@ -731,6 +767,169 @@ def scan_kernel_times(x: torch.Tensor, consts, lut: torch.Tensor,
                                                     key=lambda kv: -kv[1])))
 
 
+def y_scan_as_gray(data: bytes) -> bytes:
+    """The Y scan of a 3-scan file as a gray JFIF of its own: the segments
+    before its SOS (SOF0 rewritten to one component: the Y scan's blocks
+    are in raster order of the Y grid either way), its SOS, its
+    entropy-coded segments with their RSTn markers, and EOI."""
+    out, pos = [data[:2]], 2
+    while data[pos + 1] != 0xDA:
+        n = (data[pos + 2] << 8) | data[pos + 3]
+        seg = data[pos:pos + 2 + n]
+        if data[pos + 1] == 0xC0:
+            seg = jfif.sof0_segment((seg[7] << 8) | seg[8],
+                                    (seg[5] << 8) | seg[6], gray=True)
+        out.append(seg)
+        pos += 2 + n
+    n = (data[pos + 2] << 8) | data[pos + 3]
+    out += [data[pos:khd._entropy_end(data, pos + 2 + n)], b"\xff\xd9"]
+    return b"".join(out)
+
+
+def decode_cases(rng: np.random.Generator, dev) -> list[dict]:
+    """The decode runs of phase 3e: each ``label``, ``files`` (the port's
+    restart files, encoded on ``dev``), ``originals`` (their pixels, or
+    None) and ``one`` (decode_jpeg of one file instead of
+    decode_jpeg_batch)."""
+    cases = []
+    for (samp, b, h, w, rows, mode), one in (
+            [(g, False) for g in DECODE_GEOMETRIES] + [(DECODE_ONE, True)]):
+        batch = synthetic_batch(rng, b, h, w)
+        cfg = EncodeConfig(scan_layout="interleaved", huffman=mode,
+                           subsampling=samp, restart_interval_mcu_rows=rows)
+        files = FastBatchEncoder(h, w, cfg, device=dev).encode_batch(
+            torch.from_numpy(batch).to(dev))
+        segs = len(pdec._parse_device_eligible(files[0])["segs"])
+        cases.append(dict(
+            label=f"{'decode_jpeg' if one else 'decode_jpeg_batch'} "
+                  f"{LABEL[samp]} {mode} {b}x{h}x{w} r{rows} ({segs} "
+                  f"segments per image)",
+            files=files, originals=list(batch), one=one))
+    h, w, rows = DECODE_GRAY
+    frame = synthetic_batch(rng, 1, h, w)[0]
+    data = JpegEncoder(EncodeConfig(restart_interval_mcu_rows=rows),
+                       device=dev).encode(torch.from_numpy(frame).to(dev))
+    cases.append(dict(
+        label=f"decode_jpeg_batch gray: the Y scan of a 3-scan {w}x{h} "
+              f"file, restarts every {rows} block rows",
+        files=[y_scan_as_gray(data)], originals=None, one=False))
+    return cases
+
+
+def rgb_agreement(got: torch.Tensor, want: np.ndarray, what: str) -> str:
+    """Hold decoded pixels to jpeg_tpu's device-vs-host bound; returns
+    the max |diff| and the share within 1."""
+    g = got.cpu().numpy().astype(np.int32)
+    if g.shape != want.shape:
+        raise AssertionError(f"{what}: shape {g.shape} != {want.shape}")
+    diff = np.abs(g - want.astype(np.int32))
+    share = float(np.mean(diff <= 1))
+    if diff.max() > RGB_MAX_DIFF or not share > RGB_WITHIN_1:
+        raise AssertionError(f"{what}: max |diff| {diff.max()}, share "
+                             f"within 1 {share:.6f} (bound: max <= "
+                             f"{RGB_MAX_DIFF}, share > {RGB_WITHIN_1})")
+    return f"max |diff| {diff.max()}, within 1 {share:.6f}"
+
+
+def check_decode_case(case: dict, imgs: list[torch.Tensor], dev) -> str:
+    """Kernel G's coefficients against the native decoder's (exact), and
+    the decoded pixels against the CPU path's reconstruction of those
+    coefficients and the golden decoder's (jpeg_tpu's bound); returns a
+    summary.  The extra kernel launch here is not the main path's."""
+    files = case["files"][:1] if case["one"] else case["files"]
+    infos = [pdec._parse_device_eligible(f) for f in files]
+    zz = pdec._decode_lanes(infos, dev).cpu()
+    off, parts = 0, []
+    for i, (f, inf, img) in enumerate(zip(files, infos, imgs)):
+        S = len(inf["segs"])
+        planes = pdec._planes_of(zz[off:off + S], inf)
+        off += S
+        comps, coeffs, *_ = golden.parse_coefficients(f)
+        for got, comp in zip(planes, comps):
+            want = torch.from_numpy(coeffs[comp.comp_id])
+            err = max_abs_err((got,), (want,))
+            if err:
+                raise AssertionError(f"{case['label']}: image {i}: kernel G "
+                                     f"and the native decoder differ, "
+                                     f"max_abs_err {err}")
+        cpu = decode_jpeg(f, "host", device="cpu").numpy()
+        parts.append(f"image {i}: vs the CPU path "
+                     + rgb_agreement(img, cpu, f"{case['label']} image {i}")
+                     + "; vs the golden decoder "
+                     + rgb_agreement(img, golden.decode(f),
+                                     f"{case['label']} image {i}"))
+        if case["originals"] is not None:
+            quality_db = golden.psnr(case["originals"][i], img.cpu().numpy())
+            if not quality_db > MIN_PSNR_DB:
+                raise AssertionError(f"{case['label']}: image {i}: PSNR "
+                                     f"{quality_db:.2f} dB <= {MIN_PSNR_DB}")
+            parts[-1] += f"; PSNR {quality_db:.2f} dB"
+    return (f"{case['label']}: zz of {len(files)} image(s), "
+            f"{zz.shape[0]} lanes, equal to the native decoder's "
+            f"(max_abs_err 0); " + " | ".join(parts[:2])
+            + (f" | ... ({len(parts)} images)" if len(parts) > 2 else ""))
+
+
+def decode_bound(streams: np.ndarray, nblk_seg: int, n_images: int) -> float:
+    """bound_ms of kernel G: its bytes over the HBM rate (the streams and
+    each lane's block count read once, each image's one table set read
+    once, although the kernel takes a copy per lane, the zz written once)."""
+    S = streams.shape[0]
+    nbytes = streams.nbytes + n_images * (64 * 4 * 2 + 256 * 4) + S * 4 \
+        + S * nblk_seg * 64 * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def decode_phase(dcases: list[dict], dev, launches: dict):
+    """Phase 3e: kernel G against its twin on case 0's full kernel inputs
+    (clean and corrupted), then each case's main-path run with the launch
+    counts reset just before it (added to ``launches``), checked by
+    ``check_decode_case``.  Returns (the twin's max_abs_err, case 0's
+    kernel inputs, its clean inputs on ``dev``, [(label, zero-argument call
+    of the case)])."""
+    g_in = pdec._lane_inputs([pdec._parse_device_eligible(f)
+                              for f in dcases[0]["files"]])
+    g_streams, g_maxc, g_delt, g_hvp, g_nblk, g_samp, g_seg, g_mw = g_in
+    corrupt = g_streams.copy()
+    corrupt[1, 5] ^= 1 << 11  # a flipped bit: lane 1 loses sync
+    corrupt[2, 8:10] = -1     # 64 one-bits: no code matches (length 17)
+    twin_in, twin_err = {}, 0
+    for label, st in (("clean", g_streams), ("corrupted", corrupt)):
+        a = [torch.from_numpy(x).to(dev)
+             for x in (st, g_maxc, g_delt, g_hvp, g_nblk)]
+        twin_in[label] = a
+        got = khd.decode_segments(*a, g_samp, g_seg, g_mw)
+        want = khd.decode_segments_plain(*a, g_samp, g_seg, g_mw)
+        err = max_abs_err((got.cpu(),), (want.cpu(),))
+        twin_err = max(twin_err, err)
+        print(f"kernel decode_segments ({label}: every lane of "
+              f"{dcases[0]['label']}): {tuple(got.shape)} {got.dtype}: "
+              f"max_abs_err {err} (tolerance: exact)")
+        if err:
+            raise AssertionError(f"kernel decode_segments disagrees with its "
+                                 f"plain twin: max_abs_err {err}")
+    runs = []
+    for case in dcases:
+        def fn(files=case["files"], one=case["one"]):
+            out = ([decode_jpeg(files[0], "device", device=dev)] if one
+                   else decode_jpeg_batch(files, "device", device=dev))
+            torch.cuda.synchronize()
+            return out
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        imgs = fn()
+        counts = launch_counts()
+        print(f"main path {case['label']}: launches {json.dumps(counts)}")
+        if counts["decode_segments"] <= 0:
+            raise AssertionError(f"kernel decode_segments was not launched on "
+                                 f"the path {case['label']}")
+        for name, n in counts.items():
+            launches[name] += n
+        print("  " + check_decode_case(case, imgs, dev))
+        runs.append((case["label"], fn))
+    return twin_err, g_in, twin_in["clean"], runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1083,6 +1282,13 @@ def main() -> int:
         print("  " + check_f64_case(case, files, fixed_dht))
         sampling_runs.append((case["label"], fn))
 
+    # -- phase 3e: decode: kernel G against its twin, then each case --------
+    t_decode = time.perf_counter()
+    dcases = decode_cases(np.random.default_rng(args.seed + 5), dev)
+    errs["decode_segments"], g_in, g_dev, decode_runs = decode_phase(
+        dcases, dev, launches)
+    print(f"phase 3e (decode) took {time.perf_counter() - t_decode:.1f} s")
+
     # -- phase 4: timings ----------------------------------------------------
     for mode in MODES:
         for (b, h, w, r), bt, e in zip(GEOMETRIES, batches, encoders[mode]):
@@ -1202,13 +1408,57 @@ def main() -> int:
           f"({k0:.4f}, {k1:.4f}), plain {(p0 + p1) / 2:.4f} ms ({p0:.4f}, "
           f"{p1:.4f}), bound {bound['K13'][0]:.5f} ms (bytes)")
 
+    # decode: each case's call, device time, kernel G's share and idle
+    # share; kernel G alone at the 16x640x640 r1 lanes, its twin at the
+    # reduced input, and the host entropy route on the same files
+    t_decode = time.perf_counter()
+    decode_n = max(3, args.runs // 2)
+    for label, fn in decode_runs:
+        call_ms = host_ms(fn, decode_n)
+        per_call, idle = device_profile(fn, decode_n)
+        g_us = sum(v for k, v in per_call.items() if "decode_segments" in k)
+        print(f"timing {label} on [{card}]: {call_ms:.4f} ms per call; "
+              f"median of {decode_n}")
+        print(f"  device µs per call (torch.profiler, {decode_n} calls): "
+              f"total {sum(per_call.values()):.2f}, kernel G {g_us:.2f}; "
+              f"device idle share {idle:.4f}; by name: " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in sorted(
+                      per_call.items(), key=lambda kv: -kv[1])[:8]))
+    g_streams, _, _, _, _, g_samp, g_seg, g_mw = g_in
+
+    def g_full():
+        return khd.decode_segments(*g_dev, g_samp, g_seg, g_mw)
+
+    def g_twin():
+        return khd.decode_segments_plain(*g_dev, g_samp, g_seg, g_mw)
+    # the twin takes seconds at this size and ran warm in phase 3e
+    p0, k0, k1, p1 = (cuda_ms(g_twin, 1, 1, 0), cuda_ms(g_full, args.runs),
+                      cuda_ms(g_full, args.runs), cuda_ms(g_twin, 1, 1, 0))
+    host_route = host_ms(lambda: [golden.parse_coefficients(f)
+                                  for f in dcases[0]["files"]], decode_n)
+    times["decode_segments"] = ((k0 + k1) / 2, (p0 + p1) / 2, None)
+    bound["decode_segments"] = (
+        decode_bound(g_streams, g_seg, len(dcases[0]["files"])), "bytes")
+    print(f"timing kernel decode_segments (G) at {dcases[0]['label']} "
+          f"({g_streams.shape[0]} lanes x {g_seg} blocks, {g_mw} words) on "
+          f"[{card}]: {times['decode_segments'][0]:.4f} ms ({k0:.4f}, "
+          f"{k1:.4f}), bound {bound['decode_segments'][0]:.5f} ms (bytes); "
+          f"plain twin on the same inputs "
+          f"{times['decode_segments'][1]:.4f} ms ({p0:.4f}, "
+          f"{p1:.4f}); host entropy route on the same "
+          f"{len(dcases[0]['files'])} files "
+          f"(golden.parse_coefficients: native decode_scan on host threads "
+          f"+ plane scatter) {host_route:.4f} ms; median of {args.runs} "
+          f"(twin: one call each); the decode timings took "
+          f"{time.perf_counter() - t_decode:.1f} s")
+
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1], "launches": launches[name],
          "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bound[name][0],
          "bound_by": bound[name][1], "library_ms": times[name][2]}
-        for name in calls]}
+        for name in [*calls, "decode_segments"]]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

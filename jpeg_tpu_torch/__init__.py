@@ -1,4 +1,4 @@
-"""PyTorch / CUDA port of the jpeg_tpu encoders.
+"""PyTorch / CUDA port of the jpeg_tpu encoders and decoder.
 
 * ``FastBatchEncoder``: the interleaved-scan batch encode at 4:2:0, 4:2:2
   and 4:4:4 with fixed (T.81 Annex K.3), dynamic and dynamic-sampled
@@ -8,19 +8,24 @@
   ``encode_region``), ``encode_jpeg`` and ``encode_gray``: the one-shot
   API of ``jpeg_tpu.pipelines.encode`` in both scan layouts ("3scan", the
   default, and "interleaved"), byte-identical to ``jpeg_tpu``'s.
+* ``decode_jpeg`` and ``decode_jpeg_batch``: ``jpeg_tpu.pipelines.decode``'s
+  decode API; restart streams decode in a hand-written CUDA Huffman
+  decoder, other streams on the host (the port's native library), and the
+  reconstruction runs in torch on the same device.
 
-On a CUDA device every step from u8 pixels to packed words runs in the
-hand-written kernels under ``csrc/``; on the CPU the same steps run their
-plain PyTorch twins.  The entry points run on the card unless the caller
-passes ``device="cpu"``.
+On a CUDA device every encode step from u8 pixels to packed words, and the
+Huffman decode of restart segments, runs in the hand-written kernels under
+``csrc/``; on the CPU the same steps run their plain PyTorch twins.  The
+entry points run on the card unless the caller passes ``device="cpu"``.
 
 The package imports neither ``jax`` nor anything of ``jpeg_tpu``: it keeps
 its own copies of the host code it needs (``core``, ``huffman``,
 ``bitstream``, ``golden`` and the C++ runtime under ``native``).
 """
 from .core.types import Area, EncodeConfig  # noqa: F401
+from .pipelines.decode import decode_jpeg, decode_jpeg_batch  # noqa: F401
 from .pipelines.encode import JpegEncoder, encode_gray, encode_jpeg  # noqa: F401
 from .pipelines.fast import FastBatchEncoder  # noqa: F401
 
 __all__ = ["Area", "EncodeConfig", "FastBatchEncoder", "JpegEncoder",
-           "encode_gray", "encode_jpeg"]
+           "decode_jpeg", "decode_jpeg_batch", "encode_gray", "encode_jpeg"]

@@ -1,10 +1,14 @@
-"""Baseline JPEG decoder (numpy, host side): the port's bitstream oracle.
+"""JPEG decoder (numpy, host side): the port's bitstream oracle.
 
-The port's own copy of the baseline part of ``jpeg_tpu.golden.decoder``
-(SOF0, 8-bit, 1 or 3 components, general sampling factors, interleaved
-and single-component scans, DHT/DQT/DRI/RSTn, 0xFF00 stuffing), on its
-pure-Python scan path only, plus ``psnr``.  ``chip_smoke.py`` decodes the
-port's files with it; ``tests/test_torch_host.py`` holds it equal to the
+The port's own copy of ``jpeg_tpu.golden.decoder``: SOF0 baseline and
+SOF2 progressive (spectral selection, successive approximation, EOBn
+runs), 8-bit, 1 or 3 components, general sampling factors, interleaved
+and single-component scans, DHT/DQT/DRI/RSTn, 0xFF00 stuffing, plus
+``psnr``.  Baseline scans decode in the port's native library
+(``native.decode_scan``, RSTn segments on host threads); there is no
+pure-Python baseline walk.  ``parse_coefficients`` is the host entropy
+route of ``pipelines.decode``; ``chip_smoke.py`` decodes the port's files
+with ``decode``; ``tests/test_torch_host.py`` holds it equal to the
 original.
 """
 from __future__ import annotations
@@ -118,30 +122,6 @@ def _extend(v: int, nbits: int) -> int:
     return v
 
 
-def _decode_block(br: _BitReader, dc_tab: HuffmanTable, ac_tab: HuffmanTable,
-                  pred: int) -> tuple[np.ndarray, int]:
-    zz = np.zeros(64, dtype=np.int32)
-    cls = _decode_symbol(br, dc_tab)
-    diff = _extend(br.read_bits(cls), cls)
-    pred += diff
-    zz[0] = pred
-    k = 1
-    while k < 64:
-        sym = _decode_symbol(br, ac_tab)
-        if sym == 0x00:  # EOB
-            break
-        if sym == 0xF0:  # ZRL
-            k += 16
-            continue
-        run, size = sym >> 4, sym & 0x0F
-        k += run
-        if k > 63:
-            raise ValueError("run past end of block")
-        zz[k] = _extend(br.read_bits(size), size)
-        k += 1
-    return zz, pred
-
-
 def _idct_blocks(zz: np.ndarray, quant: np.ndarray) -> np.ndarray:
     """De-zigzag, dequantize, inverse DCT; returns pixel blocks [N, 8, 8]."""
     coef = np.zeros_like(zz)
@@ -196,8 +176,9 @@ def parse_coefficients(data: bytes):
     """Parse markers + entropy-decode all scans (the serial host stage).
 
     Returns (comps, coeffs, quant, width, height) — the zig-zagged
-    quantized coefficient arrays per component, ready for
-    ``_reconstruct``.  Baseline (SOF0) only.
+    quantized coefficient arrays per component, ready for numeric
+    reconstruction (host ``_reconstruct`` or the device decoder in
+    ``pipelines.decode``).
     """
     if data[:2] != b"\xff\xd8":
         raise ValueError("missing SOI")
@@ -207,6 +188,7 @@ def parse_coefficients(data: bytes):
     comps: list[_Component] = []
     width = height = 0
     restart_interval = 0
+    progressive = False
     # coefficient storage per component id
     coeffs: dict[int, np.ndarray] = {}
 
@@ -243,7 +225,8 @@ def parse_coefficients(data: bytes):
                 vals = np.frombuffer(seg[p + 17:p + 17 + n], dtype=np.uint8)
                 huff[(tc, th)] = table_from_spec(bits, vals)
                 p += 17 + n
-        elif marker == 0xC0:  # SOF0 baseline
+        elif marker in (0xC0, 0xC2):  # SOF0 baseline / SOF2 progressive
+            progressive = marker == 0xC2
             height = (seg[1] << 8) | seg[2]
             width = (seg[3] << 8) | seg[4]
             ncomp = seg[5]
@@ -251,7 +234,7 @@ def parse_coefficients(data: bytes):
             for c in range(ncomp):
                 cid, samp, qid = seg[6 + 3 * c], seg[7 + 3 * c], seg[8 + 3 * c]
                 comps.append(_Component(cid, samp >> 4, samp & 0x0F, qid))
-        elif marker in (0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7):
+        elif marker in (0xC1, 0xC3, 0xC5, 0xC6, 0xC7):
             raise ValueError(f"unsupported SOF {marker:#x}")
         elif marker == 0xDD:  # DRI
             restart_interval = (seg[0] << 8) | seg[1]
@@ -263,9 +246,17 @@ def parse_coefficients(data: bytes):
                 comp = next(cc for cc in comps if cc.comp_id == cid)
                 comp.dc_table, comp.ac_table = tabs >> 4, tabs & 0x0F
                 scan_comps.append(comp)
+            ss = seg[1 + 2 * ns]
+            se = seg[2 + 2 * ns]
+            ah_al = seg[3 + 2 * ns]
             br = _BitReader(data, pos + seg_len)
-            _decode_scan(br, scan_comps, comps, huff, coeffs, width,
-                         height, restart_interval)
+            if progressive:
+                _decode_scan_progressive(
+                    br, scan_comps, comps, huff, coeffs, width, height,
+                    restart_interval, ss, se, ah_al >> 4, ah_al & 0x0F)
+            else:
+                _decode_scan_native(br, scan_comps, comps, huff, coeffs,
+                                    width, height, restart_interval)
             # continue parsing at the marker the scan stopped on
             while br.pos < len(data) and data[br.pos] != 0xFF:
                 br.pos += 1
@@ -276,81 +267,225 @@ def parse_coefficients(data: bytes):
     return comps, coeffs, quant, width, height
 
 
-def _decode_scan(br, scan_comps, all_comps, huff, coeffs, width, height,
-                 restart_interval):
-    """Entropy-decode one scan; general baseline sampling factors.
+def _huff_specs(huff, tc):
+    """[4, 273] int32 BITS+HUFFVAL spec block for the native decoder."""
+    specs = np.zeros((4, 17 + 256), np.int32)
+    for (cls, th), table in huff.items():
+        if cls != tc or th > 3:
+            continue
+        specs[th, :17] = table.bits
+        specs[th, 17:17 + len(table.huffval)] = table.huffval
+    return specs
 
-    Component plane dims follow T.81 A.1.1: ceil(dim * samp / smax),
-    padded to whole blocks; an interleaved MCU carries h x v blocks per
-    component in raster order within the MCU.
-    """
+
+def _decode_scan_native(br, scan_comps, all_comps, huff, coeffs, width,
+                        height, restart_interval) -> None:
+    """Run one baseline scan through the port's C++ bit-walk (which
+    builds at first use and raises if it cannot)."""
+    from .. import native
     hmax = max(c.h_samp for c in all_comps)
     vmax = max(c.v_samp for c in all_comps)
-    true_width, true_height = width, height
     mcu_w, mcu_h = 8 * hmax, 8 * vmax
     mx = -(-width // mcu_w)
     my = -(-height // mcu_h)
 
-    def plane_blocks(comp):
-        # blocks per row/column of the component's padded plane
-        return mx * comp.h_samp, my * comp.v_samp
-
     if len(scan_comps) == 1:
-        # T.81 A.2.2: a non-interleaved scan carries ceil(cw/8) x ceil(ch/8)
-        # blocks of the component's true (unpadded-to-MCU) plane
         comp = scan_comps[0]
-        cw = -(-true_width * comp.h_samp // hmax)
-        ch = -(-true_height * comp.v_samp // vmax)
+        cw = -(-width * comp.h_samp // hmax)
+        ch = -(-height * comp.v_samp // vmax)
         bw, bh = -(-cw // 8), -(-ch // 8)
         comp.bw, comp.bh = bw, bh
-        nblocks = bw * bh
-        out = np.zeros((nblocks, 64), dtype=np.int32)
-        pred = 0
-        dc_tab, ac_tab = huff[(0, comp.dc_table)], huff[(1, comp.ac_table)]
-        count_since_rst = 0
-        for b in range(nblocks):
-            if restart_interval and count_since_rst == restart_interval:
-                code = br.consume_marker()
-                if not (0xD0 <= code <= 0xD7):
-                    raise ValueError(f"expected RST, got {code:#x}")
-                pred = 0
-                count_since_rst = 0
-            out[b], pred = _decode_block(br, dc_tab, ac_tab, pred)
-            count_since_rst += 1
-        coeffs[comp.comp_id] = out
+        pattern = [0]
+        n_mcus = bw * bh
+        comp_dc = [comp.dc_table]
+        comp_ac = [comp.ac_table]
+    else:
+        pattern = []
+        comp_dc, comp_ac = [], []
+        for slot, comp in enumerate(scan_comps):
+            comp.bw, comp.bh = mx * comp.h_samp, my * comp.v_samp
+            pattern += [slot] * (comp.h_samp * comp.v_samp)
+            comp_dc.append(comp.dc_table)
+            comp_ac.append(comp.ac_table)
+        n_mcus = mx * my
+
+    out, end = native.decode_scan(br.data, br.pos, _huff_specs(huff, 0),
+                                  _huff_specs(huff, 1), pattern, comp_dc,
+                                  comp_ac, n_mcus, restart_interval)
+    br.pos = end
+    br.align_and_clear()
+
+    if len(scan_comps) == 1:
+        coeffs[scan_comps[0].comp_id] = out
+        return
+    # scatter emission-order blocks into component planes (vectorized)
+    off = 0
+    for comp in scan_comps:
+        hv = comp.h_samp * comp.v_samp
+        sel = (np.arange(n_mcus)[:, None] * len(pattern)
+               + off + np.arange(hv)).reshape(-1)
+        r = np.arange(my)[:, None, None, None]
+        c = np.arange(mx)[None, :, None, None]
+        dv = np.arange(comp.v_samp)[None, None, :, None]
+        dh = np.arange(comp.h_samp)[None, None, None, :]
+        bi = ((comp.v_samp * r + dv) * comp.bw
+              + comp.h_samp * c + dh).reshape(-1)
+        plane = np.zeros((comp.bw * comp.bh, 64), np.int32)
+        plane[bi] = out[sel]
+        coeffs[comp.comp_id] = plane
+        off += hv
+
+
+def _decode_scan_progressive(br, scan_comps, all_comps, huff, coeffs, width,
+                             height, restart_interval, ss, se, ah, al):
+    """Entropy-decode one progressive (SOF2) scan — T.81 Annex G.2.
+
+    Coefficient arrays persist across scans on the MCU-padded grid;
+    non-interleaved AC scans walk the component's true ceil(dim/8) grid
+    (T.81 A.2.2) and write through a row-stride mapping.  Handles DC
+    first/refinement (interleaved or single-component) and AC
+    first/refinement with EOBn runs.
+    """
+    hmax = max(c.h_samp for c in all_comps)
+    vmax = max(c.v_samp for c in all_comps)
+    mx = -(-width // (8 * hmax))
+    my = -(-height // (8 * vmax))
+
+    def ensure(comp):
+        bw, bh = mx * comp.h_samp, my * comp.v_samp
+        comp.bw, comp.bh = bw, bh
+        if comp.comp_id not in coeffs:
+            coeffs[comp.comp_id] = np.zeros((bw * bh, 64), np.int32)
+        return coeffs[comp.comp_id]
+
+    def expect_rst():
+        code = br.consume_marker()
+        if not (0xD0 <= code <= 0xD7):
+            raise ValueError(f"expected RST, got {code:#x}")
+
+    if ss == 0:  # DC scan (interleaved or single-component)
+        if se != 0:
+            raise ValueError("progressive scan with Ss=0 must have Se=0")
+        arrs = {c.comp_id: ensure(c) for c in scan_comps}
+        preds = {c.comp_id: 0 for c in scan_comps}
+        tabs = {c.comp_id: huff.get((0, c.dc_table)) for c in scan_comps}
+        count = 0
+        if len(scan_comps) == 1:
+            comp = scan_comps[0]
+            cw = -(-width * comp.h_samp // hmax)
+            ch = -(-height * comp.v_samp // vmax)
+            walk = [(comp, r, c) for r in range(-(-ch // 8))
+                    for c in range(-(-cw // 8))]
+        else:
+            walk = [(comp, comp.v_samp * r + dv, comp.h_samp * c + dh)
+                    for r in range(my) for c in range(mx)
+                    for comp in scan_comps
+                    for dv in range(comp.v_samp)
+                    for dh in range(comp.h_samp)]
+        mcu_blocks = (1 if len(scan_comps) == 1 else
+                      sum(c.h_samp * c.v_samp for c in scan_comps))
+        for i, (comp, r, c) in enumerate(walk):
+            if restart_interval and i and i % (restart_interval * mcu_blocks) == 0:
+                expect_rst()
+                preds = {k: 0 for k in preds}
+            bi = r * comp.bw + c
+            if ah == 0:  # first DC scan: diff-coded, point-transformed
+                cls = _decode_symbol(br, tabs[comp.comp_id])
+                diff = _extend(br.read_bits(cls), cls)
+                preds[comp.comp_id] += diff
+                arrs[comp.comp_id][bi, 0] = preds[comp.comp_id] << al
+            else:  # DC refinement: one raw bit per block
+                if br.read_bit():
+                    arrs[comp.comp_id][bi, 0] |= 1 << al
         return
 
-    data = {}
-    preds = {}
-    tabs = {}
-    bws = {}
-    for c in scan_comps:
-        bw, bh = plane_blocks(c)
-        c.bw, c.bh = bw, bh
-        data[c.comp_id] = np.zeros((bw * bh, 64), dtype=np.int32)
-        preds[c.comp_id] = 0
-        tabs[c.comp_id] = (huff[(0, c.dc_table)], huff[(1, c.ac_table)])
-        bws[c.comp_id] = bw
-    count_since_rst = 0
-    for r in range(my):
-        for c in range(mx):
-            if restart_interval and count_since_rst == restart_interval:
-                code = br.consume_marker()
-                if not (0xD0 <= code <= 0xD7):
-                    raise ValueError(f"expected RST, got {code:#x}")
-                preds = {k: 0 for k in preds}
-                count_since_rst = 0
-            for comp in scan_comps:
-                for dv in range(comp.v_samp):
-                    for dh in range(comp.h_samp):
-                        bi = ((comp.v_samp * r + dv) * bws[comp.comp_id]
-                              + comp.h_samp * c + dh)
-                        data[comp.comp_id][bi], preds[comp.comp_id] = \
-                            _decode_block(br, *tabs[comp.comp_id],
-                                          preds[comp.comp_id])
-            count_since_rst += 1
-    for c in scan_comps:
-        coeffs[c.comp_id] = data[c.comp_id]
+    # AC scan: single component only (T.81 G.1.1.1.1)
+    if len(scan_comps) != 1:
+        raise ValueError("progressive AC scans must be non-interleaved")
+    comp = scan_comps[0]
+    arr = ensure(comp)
+    ac_tab = huff[(1, comp.ac_table)]
+    cw = -(-width * comp.h_samp // hmax)
+    ch = -(-height * comp.v_samp // vmax)
+    tbw, tbh = -(-cw // 8), -(-ch // 8)
+    eobrun = 0
+    p1, m1 = 1 << al, -1 << al
+    count = 0
+    for r in range(tbh):
+        for c in range(tbw):
+            if restart_interval and count == restart_interval:
+                expect_rst()
+                eobrun = 0
+                count = 0
+            count += 1
+            zz = arr[r * comp.bw + c]
+            if ah == 0:
+                # first AC scan (G.2.2): values enter at magnitude << al
+                if eobrun:
+                    eobrun -= 1
+                    continue
+                k = ss
+                while k <= se:
+                    sym = _decode_symbol(br, ac_tab)
+                    run, size = sym >> 4, sym & 0x0F
+                    if size == 0:
+                        if run == 15:  # ZRL
+                            k += 16
+                            continue
+                        eobrun = (1 << run) - 1
+                        if run:
+                            eobrun += br.read_bits(run)
+                        break
+                    k += run
+                    if k > se:
+                        raise ValueError("AC run past end of band")
+                    zz[k] = _extend(br.read_bits(size), size) << al
+                    k += 1
+            else:
+                # AC refinement (G.2.3): a correction bit for every
+                # nonzero-history coefficient passed over; newly-
+                # significant coefficients enter as +-1 << al.  Mirrors
+                # the decode flow of T.81 Figure G.10 (k resumes from the
+                # EOB symbol's position into the EOB-run correction pass).
+                k = ss
+                if eobrun == 0:
+                    while k <= se:
+                        sym = _decode_symbol(br, ac_tab)
+                        run, size = sym >> 4, sym & 0x0F
+                        if size == 0:
+                            if run != 15:
+                                eobrun = 1 << run
+                                if run:
+                                    eobrun += br.read_bits(run)
+                                break
+                            newval = 0  # ZRL: 16 zero-history positions
+                        else:
+                            if size != 1:
+                                raise ValueError("refinement size must be 1")
+                            newval = p1 if br.read_bit() else m1
+                        # advance over `run` zero-history positions,
+                        # correcting nonzero-history coefficients en route
+                        while k <= se:
+                            if zz[k]:
+                                if br.read_bit() and (zz[k] & p1) == 0:
+                                    zz[k] += p1 if zz[k] >= 0 else m1
+                            else:
+                                if run == 0:
+                                    if newval:
+                                        zz[k] = newval
+                                    break
+                                run -= 1
+                            k += 1
+                        k += 1
+                if eobrun > 0:
+                    # end-of-band: correction bits for the remaining
+                    # nonzero-history coefficients of this block
+                    while k <= se:
+                        if zz[k]:
+                            if br.read_bit() and (zz[k] & p1) == 0:
+                                zz[k] += p1 if zz[k] >= 0 else m1
+                        k += 1
+                    eobrun -= 1
 
 
 def _reconstruct(comps, coeffs, quant, width, height) -> np.ndarray:

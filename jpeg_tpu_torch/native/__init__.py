@@ -37,6 +37,8 @@ _SIGNATURES = {
     "jt_assemble_interleaved": [_U32P, _I64, _I32P, _I64, _I64, _U8P,
                                 _I64P, _U8P, _I64, _I64P, _I64],
     "jt_build_huff_tables": [_I64P, _I64, _I32P, _I32P, _I32P, _I32P],
+    "jt_decode_scan_mt": [_U8P, _I64, _I64, _I32P, _I32P, _I32P, _I64, _I32P,
+                          _I32P, _I64, _I64, _I64, _I64, _I32P],
 }
 
 
@@ -155,3 +157,34 @@ def build_huff_tables(freqs: np.ndarray):
     if rc:
         raise ValueError("Huffman code length overflow (>= 32 bits)")
     return bits, huffval, code, length
+
+
+def decode_scan(data: bytes, start: int, dc_specs: np.ndarray,
+                ac_specs: np.ndarray, pattern, comp_dc, comp_ac,
+                n_mcus: int, restart_interval: int):
+    """Baseline scan decode (the serial Huffman bit-walk).
+
+    dc_specs/ac_specs: [4, 273] int32, DHT BITS[17] + HUFFVAL[256] per
+    table id.  pattern: the component slot of each block within an MCU.
+    With restart markers, the RSTn-delimited segments decode in parallel
+    on one host thread per CPU, at most 16.
+    Returns (zz [n_mcus * len(pattern), 64] int32 in emission order,
+    the offset past the scan's last entropy byte); raises ValueError on a
+    malformed stream.
+    """
+    lib = load()
+    buf = np.frombuffer(data, np.uint8)
+    dc = np.ascontiguousarray(dc_specs, np.int32)
+    ac = np.ascontiguousarray(ac_specs, np.int32)
+    pat = np.ascontiguousarray(pattern, np.int32)
+    cdc = np.ascontiguousarray(comp_dc, np.int32)
+    cac = np.ascontiguousarray(comp_ac, np.int32)
+    out = np.empty((n_mcus * pat.size, 64), np.int32)
+    end = lib.jt_decode_scan_mt(
+        _ptr(buf, _U8P), buf.size, start, _ptr(dc, _I32P), _ptr(ac, _I32P),
+        _ptr(pat, _I32P), pat.size, _ptr(cdc, _I32P), _ptr(cac, _I32P),
+        cdc.size, n_mcus, restart_interval, min(os.cpu_count() or 1, 16),
+        _ptr(out, _I32P))
+    if end < 0:
+        raise ValueError("malformed entropy-coded segment")
+    return out, int(end)

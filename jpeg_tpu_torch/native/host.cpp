@@ -2,15 +2,16 @@
 // the Annex K.2 Huffman builder, with C linkage for ctypes.
 //
 // The port's own copy of the parts of jpeg_tpu's native/jpeg_tpu_host.cpp
-// that the batch encoder uses (jt_finish_scan(s), jt_assemble_interleaved,
-// jt_build_huff_tables); outputs equal the original's byte for byte
-// (tests/test_torch_host.py).
+// that the port uses (jt_finish_scan(s), jt_assemble_interleaved,
+// jt_build_huff_tables, and the baseline scan decoder jt_decode_scan(_mt));
+// outputs equal the original's byte for byte (tests/test_torch_host.py).
 //
 // The device produces each entropy segment as big-endian-packed u32 words
 // plus a bit count.  Finalization serializes the bytes, stuffs a 0x00
 // after every 0xFF data byte and pads the tail byte with 1-bits (a bare
 // 0xFF when the stream ends on a byte boundary).  No Python.h dependency.
 
+#include <atomic>
 #include <cstdint>
 #include <cstring>
 #include <thread>
@@ -315,6 +316,286 @@ int64_t jt_build_huff_tables(const int64_t* freqs, int64_t n_tables,
     }
   }
   return rc;
+}
+
+
+// ---------------------------------------------------------------------------
+// Baseline entropy decode: the host-serial Huffman bit-walk, natively.
+//
+// The port's baseline scan path: golden/decoder.py::_decode_scan, which is
+// the host entropy route of pipelines/decode.py and, in chip_smoke.py, the
+// full-size oracle of the device decoder.  This decodes one baseline scan
+// into zig-zag
+// coefficient blocks in SCAN EMISSION ORDER; the Python caller (which
+// still parses markers) reorders blocks into component planes with one
+// vectorized scatter.
+//
+// data:        the full JPEG byte buffer.
+// start:       offset of the first entropy byte (after the SOS header).
+// dc_specs/ac_specs: [4][17+256] int32 per table id: DHT BITS list
+//              (entry 0 unused) followed by HUFFVAL.
+// pattern:     [pattern_len] component slot per block within one MCU
+//              (e.g. [0,0,0,0,1,2] for 4:2:0 interleaved; [0] for a
+//              non-interleaved scan).
+// comp_dc/comp_ac: [n_comps] table ids per component slot.
+// n_mcus:      MCU count (block count for non-interleaved).
+// restart_interval: MCUs between RSTn markers (0 = none).
+// out_zz:      [n_mcus * pattern_len, 64] int32, zig-zag order, DC
+//              prediction resolved.
+// Returns the byte offset just past the last consumed entropy byte
+// (pointing at the next marker's 0xFF when one follows), or -1 on a
+// malformed stream.
+
+namespace {
+
+struct HuffDecodeTable {
+  // canonical decode: per length l, first code value and huffval index
+  int32_t mincode[17];
+  int32_t maxcode[17];  // -1 where no codes of this length
+  int32_t valptr[17];
+  const int32_t* huffval;
+};
+
+static void build_decode_table(const int32_t* spec, HuffDecodeTable* t) {
+  const int32_t* bits = spec;        // [17]
+  t->huffval = spec + 17;            // [256]
+  int32_t code = 0;
+  int32_t k = 0;
+  for (int l = 1; l <= 16; ++l) {
+    if (bits[l] > 0) {
+      t->valptr[l] = k;
+      t->mincode[l] = code;
+      code += bits[l];
+      k += bits[l];
+      t->maxcode[l] = code - 1;
+    } else {
+      t->maxcode[l] = -1;
+      t->mincode[l] = 0;
+      t->valptr[l] = 0;
+    }
+    code <<= 1;
+  }
+}
+
+struct BitReader {
+  const uint8_t* data;
+  int64_t len;
+  int64_t pos;
+  uint64_t buf;
+  int nbits;
+  bool at_marker;  // hit a non-stuffing 0xFF: feed 1-padding
+
+  void init(const uint8_t* d, int64_t l, int64_t p) {
+    data = d;
+    len = l;
+    pos = p;
+    buf = 0;
+    nbits = 0;
+    at_marker = false;
+  }
+
+  void fill() {
+    while (nbits <= 56) {
+      if (at_marker || pos >= len) {
+        buf = (buf << 8) | 0xFF;  // ones past the end (padding semantics)
+        nbits += 8;
+        continue;
+      }
+      uint8_t b = data[pos];
+      if (b == 0xFF) {
+        uint8_t nxt = (pos + 1 < len) ? data[pos + 1] : 0xD9;
+        if (nxt == 0x00) {
+          pos += 2;
+          buf = (buf << 8) | 0xFF;
+          nbits += 8;
+          continue;
+        }
+        at_marker = true;
+        continue;
+      }
+      ++pos;
+      buf = (buf << 8) | b;
+      nbits += 8;
+    }
+  }
+
+  inline int bit() {
+    if (nbits == 0) fill();
+    --nbits;
+    return (int)((buf >> nbits) & 1);
+  }
+
+  inline int32_t bits(int n) {
+    int32_t v = 0;
+    for (int i = 0; i < n; ++i) v = (v << 1) | bit();
+    return v;
+  }
+
+  // skip to and consume the pending marker; returns its code byte
+  int consume_marker() {
+    buf = 0;
+    nbits = 0;
+    at_marker = false;
+    while (pos < len && data[pos] != 0xFF) ++pos;
+    while (pos + 1 < len && data[pos + 1] == 0xFF) ++pos;  // fill bytes
+    if (pos + 1 >= len) return -1;
+    int code = data[pos + 1];
+    pos += 2;
+    return code;
+  }
+};
+
+static int decode_symbol(BitReader* br, const HuffDecodeTable* t) {
+  int32_t code = br->bit();
+  for (int l = 1; l <= 16; ++l) {
+    if (t->maxcode[l] >= 0 && code <= t->maxcode[l])
+      return t->huffval[t->valptr[l] + (code - t->mincode[l])];
+    code = (code << 1) | br->bit();
+  }
+  return -1;
+}
+
+static inline int32_t extend(int32_t v, int n) {
+  if (n == 0) return 0;
+  if (v < (1 << (n - 1))) return v - (1 << n) + 1;
+  return v;
+}
+
+}  // namespace
+
+int64_t jt_decode_scan(const uint8_t* data, int64_t len, int64_t start,
+                       const int32_t* dc_specs, const int32_t* ac_specs,
+                       const int32_t* pattern, int64_t pattern_len,
+                       const int32_t* comp_dc, const int32_t* comp_ac,
+                       int64_t n_comps, int64_t n_mcus,
+                       int64_t restart_interval, int32_t* out_zz) {
+  HuffDecodeTable dc_tabs[4], ac_tabs[4];
+  for (int i = 0; i < 4; ++i) {
+    build_decode_table(dc_specs + i * (17 + 256), &dc_tabs[i]);
+    build_decode_table(ac_specs + i * (17 + 256), &ac_tabs[i]);
+  }
+  int32_t preds[4] = {0, 0, 0, 0};
+  BitReader br;
+  br.init(data, len, start);
+
+  int64_t since_rst = 0;
+  int32_t* out = out_zz;
+  for (int64_t m = 0; m < n_mcus; ++m) {
+    if (restart_interval && since_rst == restart_interval) {
+      int code = br.consume_marker();
+      if (code < 0xD0 || code > 0xD7) return -1;
+      for (int i = 0; i < 4; ++i) preds[i] = 0;
+      since_rst = 0;
+    }
+    for (int64_t pb = 0; pb < pattern_len; ++pb, out += 64) {
+      int comp = pattern[pb];
+      const HuffDecodeTable* dt = &dc_tabs[comp_dc[comp]];
+      const HuffDecodeTable* at = &ac_tabs[comp_ac[comp]];
+      for (int i = 0; i < 64; ++i) out[i] = 0;
+      int cls = decode_symbol(&br, dt);
+      if (cls < 0 || cls > 15) return -1;
+      preds[comp] += extend(br.bits(cls), cls);
+      out[0] = preds[comp];
+      int k = 1;
+      while (k < 64) {
+        int sym = decode_symbol(&br, at);
+        if (sym < 0) return -1;
+        if (sym == 0x00) break;  // EOB
+        if (sym == 0xF0) {       // ZRL
+          k += 16;
+          continue;
+        }
+        k += sym >> 4;
+        int size = sym & 0x0F;
+        if (k > 63) return -1;
+        out[k] = extend(br.bits(size), size);
+        ++k;
+      }
+    }
+    ++since_rst;
+  }
+  return br.pos;
+}
+
+// Segment-parallel baseline decode.  With restart markers every
+// ``restart_interval`` MCUs, each RSTn-delimited segment is independent
+// (DC predictors reset at the marker, T.81 F.2.1.3.1) — the encoder's
+// device-parallel packing has an exact decode-side dual.  Boundaries come
+// from one linear marker scan (0xFF followed by 0xD0-0xD7; stuffed 0xFF00
+// pairs are skipped, 0xFF fill bytes fall through), then segments decode
+// on ``n_threads`` std::threads via static round-robin.  Returns the byte
+// offset past the final segment's entropy bytes, or -1 on a malformed
+// stream (any segment).
+int64_t jt_decode_scan_mt(const uint8_t* data, int64_t len, int64_t start,
+                          const int32_t* dc_specs, const int32_t* ac_specs,
+                          const int32_t* pattern, int64_t pattern_len,
+                          const int32_t* comp_dc, const int32_t* comp_ac,
+                          int64_t n_comps, int64_t n_mcus,
+                          int64_t restart_interval, int64_t n_threads,
+                          int32_t* out_zz) {
+  if (restart_interval <= 0 || n_threads <= 1 ||
+      n_mcus <= restart_interval) {
+    return jt_decode_scan(data, len, start, dc_specs, ac_specs, pattern,
+                          pattern_len, comp_dc, comp_ac, n_comps, n_mcus,
+                          restart_interval, out_zz);
+  }
+  const int64_t nseg = (n_mcus + restart_interval - 1) / restart_interval;
+  // marker scan: segment s spans [starts[s], ends[s]) entropy bytes
+  std::vector<int64_t> seg_start(nseg), seg_end(nseg);
+  seg_start[0] = start;
+  int64_t p = start;
+  int64_t s = 0;
+  while (s < nseg - 1) {
+    if (p + 1 >= len) return -1;
+    if (data[p] != 0xFF) {
+      ++p;
+      continue;
+    }
+    const uint8_t nxt = data[p + 1];
+    if (nxt == 0x00) {
+      p += 2;  // stuffing
+      continue;
+    }
+    if (nxt >= 0xD0 && nxt <= 0xD7) {
+      seg_end[s] = p;
+      ++s;
+      p += 2;
+      seg_start[s] = p;
+      continue;
+    }
+    if (nxt == 0xFF) {
+      ++p;  // fill byte
+      continue;
+    }
+    return -1;  // foreign marker before all restart intervals were seen
+  }
+  seg_end[nseg - 1] = len;  // last segment: reader stops at the next marker
+
+  std::atomic<bool> failed(false);
+  std::atomic<int64_t> end_pos(-1);
+  const int64_t blocks_per_mcu = pattern_len;
+  int nt = (int)(n_threads < nseg ? n_threads : nseg);
+  std::vector<std::thread> workers;
+  workers.reserve(nt);
+  for (int t = 0; t < nt; ++t) {
+    workers.emplace_back([&, t]() {
+      for (int64_t i = t; i < nseg && !failed.load(); i += nt) {
+        const int64_t mcu0 = i * restart_interval;
+        const int64_t mcus =
+            (n_mcus - mcu0 < restart_interval) ? (n_mcus - mcu0)
+                                               : restart_interval;
+        int64_t e = jt_decode_scan(
+            data, seg_end[i], seg_start[i], dc_specs, ac_specs, pattern,
+            pattern_len, comp_dc, comp_ac, n_comps, mcus, 0,
+            out_zz + mcu0 * blocks_per_mcu * 64);
+        if (e < 0) failed.store(true);
+        if (i == nseg - 1) end_pos.store(e);
+      }
+    });
+  }
+  for (auto& w : workers) w.join();
+  if (failed.load()) return -1;
+  return end_pos.load();
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
-"""Numeric sanitizers for the encode pipeline: the port of
-``jpeg_tpu.utils.guards`` (which runs them through ``checkify``).
+"""Argument checks and numeric sanitizers: the port of
+``jpeg_tpu.utils.guards`` (which runs the sanitizers through
+``checkify``), plus the decode entry points' ``entropy_engine`` check.
 
 * quantizer entries >= 1: a zero entry turns the quantize divide into
   inf/NaN and silently corrupts the stream;
@@ -53,3 +54,12 @@ def validate_encode_inputs(rgb, luma_q, chroma_q,
     for i, passed in enumerate(ok):
         if not passed:
             raise ValueError(_MESSAGES[i % 3])
+
+
+ENTROPY_ENGINES = ("auto", "host", "device")
+
+
+def check_entropy_engine(entropy_engine: str) -> None:
+    """Raise ValueError (``jpeg_tpu``'s message) for an unknown engine."""
+    if entropy_engine not in ENTROPY_ENGINES:
+        raise ValueError(f"unknown entropy_engine {entropy_engine!r}")

@@ -258,3 +258,45 @@ def test_sampling_card_bytes_equal_cpu(dev, sampling, mode):
     cfg3 = EncodeConfig(huffman=mode, subsampling=sampling)
     assert JpegEncoder(cfg3, device=dev).encode(imgs[0]) == \
         JpegEncoder(cfg3, device="cpu").encode(imgs[0])
+
+
+@pytest.mark.parametrize("sampling", ["420", "422", "444"])
+def test_decode_kernel_equals_twin_native_and_cpu(dev, sampling):
+    """Kernel G's coefficients equal its twin's and the native host
+    decoder's exactly, on a clean and a corrupted stream; the card's RGB
+    is within jpeg_tpu's device-vs-host bound of the CPU path's."""
+    from jpeg_tpu_torch import decode_jpeg, decode_jpeg_batch
+    from jpeg_tpu_torch.golden import decoder as gdec
+    from jpeg_tpu_torch.kernels import huffdec as hd
+    from jpeg_tpu_torch.pipelines import decode as dec
+    h, w = (64, 96) if sampling == "420" else (48, 64)
+    imgs = synthetic_batch(np.random.default_rng(53), 2, h, w)
+    cfg = EncodeConfig(scan_layout="interleaved", huffman="dynamic",
+                       subsampling=sampling, restart_interval_mcu_rows=1)
+    datas = FastBatchEncoder(h, w, cfg, device="cpu").encode_batch(imgs)
+    info = dec._parse_device_eligible(datas[0])
+    zz = dec._decode_lanes([info], dev)
+    assert torch.equal(zz.cpu(), dec._decode_lanes([info], "cpu"))
+    comps, coeffs, *_ = gdec.parse_coefficients(datas[0])
+    for got, comp in zip(dec._planes_of(zz, info), comps):
+        assert torch.equal(got.cpu(), torch.from_numpy(coeffs[comp.comp_id]))
+    streams, mw = hd.pack_streams(info["segs"])
+    streams[1, 3] ^= 1 << 9
+    streams[2, 1:3] = -1
+    tabs = hd.lane_tables([info["quad"]] * len(info["segs"]))
+    args = [torch.from_numpy(a) for a in (streams, *tabs)]
+    args.append(torch.tensor([info["nblk"]], dtype=torch.int32))
+    nblk_seg = info["ri"] * info["period"]
+    want = hd.decode_segments_plain(*args, sampling, nblk_seg, mw)
+    reset_launch_counts()
+    got = hd.decode_segments(*[a.to(dev) for a in args], sampling,
+                             nblk_seg, mw)
+    assert launch_counts()["decode_segments"] == 1
+    assert torch.equal(got.cpu(), want)
+    for card, cpu in zip(decode_jpeg_batch(datas, "device", device=dev),
+                         decode_jpeg_batch(datas, "device", device="cpu")):
+        diff = (card.cpu().to(torch.int32) - cpu.to(torch.int32)).abs()
+        assert int(diff.max()) <= 2 and float((diff <= 1).double().mean()) \
+            > 0.999
+    one = decode_jpeg(datas[1], device=dev)
+    assert one.device.type == "cuda" and one.shape == (h, w, 3)

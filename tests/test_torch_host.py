@@ -294,3 +294,163 @@ def test_golden_encoder_reaches_only_the_port_copies():
     assert mod.jfif is jfif and mod.T is T
     assert mod.build_tables_from_histograms is \
         build.build_tables_from_histograms
+
+
+def _decode_streams():
+    """Restart streams of every sampling (jpeg_tpu's interleaved encoder and
+    PIL: a short final segment, gray with per-image tables), a 3-scan
+    stream and a progressive one."""
+    import io
+    from PIL import Image
+    from jpeg_tpu.pipelines.encode import JpegEncoder as JaxJpegEncoder
+    out = {}
+    for samp, rows, huff in (("420", 1, "dynamic"), ("422", 2, "fixed"),
+                             ("444", 1, "dynamic")):
+        cfg = JaxConfig(scan_layout="interleaved", huffman=huff,
+                        restart_interval_mcu_rows=rows, engine="xla",
+                        subsampling=samp)
+        out[f"{samp}-r{rows}-{huff}"] = bytes(JaxJpegEncoder(cfg).encode(
+            synthetic_images(81, 1, 64, 96)[0]))
+    img = synthetic_images(83, 1, 72, 88)[0]
+    for name, mode, kw in (
+            ("pil-444-short-final", "RGB",
+             dict(subsampling=0, restart_marker_blocks=5)),
+            ("pil-gray-optimized", "L",
+             dict(restart_marker_rows=2, optimize=True)),
+            ("pil-progressive", "RGB", dict(progressive=True)),
+            ("pil-progressive-444", "RGB",
+             dict(progressive=True, subsampling=0))):
+        buf = io.BytesIO()
+        Image.fromarray(img[..., 0] if mode == "L" else img, mode).save(
+            buf, "JPEG", quality=85, **kw)
+        out[name] = buf.getvalue()
+    out["3scan"] = bytes(JaxJpegEncoder(JaxConfig()).encode(
+        synthetic_images(85, 1, 64, 64)[0]))
+    return out
+
+
+def test_golden_decoder_and_native_decode_scan_match_on_every_layout():
+    """The port's golden decoder (its native baseline scans and the
+    progressive scans) gives the original's coefficients and pixels."""
+    for name, data in _decode_streams().items():
+        comps, coeffs, quant, w, h = golden.parse_coefficients(data)
+        jcomps, jcoeffs, jquant, jw, jh = jgolden.parse_coefficients(data)
+        assert (w, h) == (jw, jh), name
+        assert [(c.comp_id, c.h_samp, c.v_samp, c.quant_id, c.bw, c.bh)
+                for c in comps] == [(c.comp_id, c.h_samp, c.v_samp,
+                                     c.quant_id, c.bw, c.bh)
+                                    for c in jcomps], name
+        assert coeffs.keys() == jcoeffs.keys(), name
+        for k in coeffs:
+            np.testing.assert_array_equal(coeffs[k], jcoeffs[k], err_msg=name)
+        for k in quant:
+            np.testing.assert_array_equal(quant[k], jquant[k], err_msg=name)
+        np.testing.assert_array_equal(golden.decode(data),
+                                      jgolden.decode(data), err_msg=name)
+
+
+@pytest.mark.parametrize("rows", [1, None])
+def test_native_decode_scan_matches(rows):
+    """``native.decode_scan`` on an interleaved stream's one scan, with
+    restarts (segments on host threads) and without (one serial walk),
+    against jpeg_tpu's coefficients in emission order; a malformed stream
+    raises."""
+    from jpeg_tpu.kernels import huffdec as jhd
+    from jpeg_tpu.pipelines.encode import JpegEncoder as JaxJpegEncoder
+    data = _decode_streams()["420-r1-dynamic"] if rows else bytes(
+        JaxJpegEncoder(JaxConfig(scan_layout="interleaved", engine="xla",
+                                 huffman="dynamic")).encode(
+            synthetic_images(81, 1, 64, 96)[0]))
+    st = jhd.parse_scan_structure(data, require_restarts=False)
+    assert (st["restart_interval"] > 0) == bool(rows)
+    start = data.index(st["entropy"])
+    jcomps, jcoeffs, _, w, h = jgolden.parse_coefficients(data)
+    huff = {}
+    for (tc, th), (bits, vals) in st["dht"].items():
+        huff[(tc, th)] = jbuild.table_from_spec(bits, vals)
+    mx, my = w // 16, h // 16
+    out, end = native.decode_scan(
+        data, start, jgolden._huff_specs(huff, 0),
+        jgolden._huff_specs(huff, 1), [0, 0, 0, 0, 1, 2],
+        [st["tabs"][c[0]][0] for c in st["comps"]],
+        [st["tabs"][c[0]][1] for c in st["comps"]], mx * my,
+        st["restart_interval"])
+    # past the last entropy byte: at the 0xFF of a fill byte or the EOI
+    assert start < end <= start + len(st["entropy"]) and data[end] == 0xFF
+    em = out.reshape(my, mx, 6, 64)
+    y = em[:, :, :4].reshape(my, mx, 2, 2, 64).transpose(0, 2, 1, 3, 4)
+    np.testing.assert_array_equal(y.reshape(-1, 64),
+                                  jcoeffs[jcomps[0].comp_id])
+    np.testing.assert_array_equal(em[:, :, 4].reshape(-1, 64),
+                                  jcoeffs[jcomps[1].comp_id])
+    np.testing.assert_array_equal(em[:, :, 5].reshape(-1, 64),
+                                  jcoeffs[jcomps[2].comp_id])
+    bad = bytearray(data)
+    bad[start:start + 8] = b"\xff\xff\xff\xff\xff\xff\xff\xfe"  # no code
+    with pytest.raises(ValueError, match="malformed"):
+        native.decode_scan(bytes(bad), start, jgolden._huff_specs(huff, 0),
+                           jgolden._huff_specs(huff, 1), [0, 0, 0, 0, 1, 2],
+                           [0, 1, 1], [0, 1, 1], mx * my,
+                           st["restart_interval"])
+
+
+def test_huffdec_host_parsers_match():
+    """The port's copies of jpeg_tpu.kernels.huffdec's host parsers; the
+    port packs exactly S rows of the words needed where jpeg_tpu pads to
+    128 lanes and power-of-two words (the padding is zeros)."""
+    from jpeg_tpu.kernels import huffdec as jhd
+    from jpeg_tpu_torch.kernels import huffdec as hd
+    assert hd._PATTERN == jhd._PATTERN
+    assert hd.SAMPLING_OF_FACTORS == jhd.SAMPLING_OF_FACTORS
+    for name, data in _decode_streams().items():
+        got = hd.parse_scan_structure(data)
+        want = jhd.parse_scan_structure(data)
+        assert (got is None) == (want is None), name
+        if got is None:
+            continue
+        assert got.keys() == want.keys()
+        for k in ("width", "height", "comps", "tabs",
+                  "restart_interval", "entropy"):
+            assert got[k] == want[k], (name, k)
+        for k in want["quant"]:
+            np.testing.assert_array_equal(got["quant"][k],
+                                          want["quant"][k])
+        for k in want["dht"]:
+            for a, b in zip(got["dht"][k], want["dht"][k]):
+                np.testing.assert_array_equal(a, b)
+        ent = want["entropy"]
+        assert hd._entropy_end(data, 0) == jhd._entropy_end(data, 0)
+        for a, b in zip(hd.split_segments(ent),
+                        jhd.split_segments(ent)):
+            np.testing.assert_array_equal(a, b)
+        segs = hd.unstuff_segments(ent)
+        jsegs = jhd.unstuff_segments(ent)
+        assert len(segs) == len(jsegs)
+        for a, b in zip(segs, jsegs):
+            np.testing.assert_array_equal(a, b)
+        S = len(segs)
+        words, mw = hd.pack_streams(segs)
+        jwords, active, jmw = jhd.pack_streams(jsegs)
+        assert words.shape == (S, mw) and words.dtype == np.int32
+        assert mw == -(-max(len(s) for s in segs) // 4)
+        np.testing.assert_array_equal(words, jwords[:S, :mw])
+        assert not jwords[:S, mw:].any() and active[0, :S].all()
+        dht = want["dht"]
+        quads = [(dht[(0, i % 2)], dht[(1, i % 2)], dht[(0, 1)],
+                  dht[(1, 1)]) for i in range(S)] \
+            if (0, 1) in dht and (1, 1) in dht else \
+            [(dht[(0, 0)], dht[(1, 0)])] * S
+        for a, b in zip(hd.lane_tables(quads), jhd.lane_tables(quads)):
+            assert a.dtype == b.dtype == np.int32
+            np.testing.assert_array_equal(
+                a, b[:, :S] if a.shape[0] == 64 else b[:S])
+    with pytest.raises(ValueError) as want:
+        jhd.unstuff_segments(b"\x01\x02", n_expected=2)
+    with pytest.raises(ValueError) as got:
+        hd.unstuff_segments(b"\x01\x02", n_expected=2)
+    assert str(got.value) == str(want.value)
+    bits = np.zeros(17, np.int64)
+    bits[[2, 3, 9]] = [3, 1, 2]
+    for a, b in zip(hd.canonical_tables(bits, np.arange(6)),
+                    jhd.canonical_tables(bits, np.arange(6))):
+        np.testing.assert_array_equal(a, b)

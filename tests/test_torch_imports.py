@@ -21,6 +21,9 @@ def _run(code: str, env=None) -> str:
 @pytest.mark.parametrize("module", ["jpeg_tpu_torch",
                                     "jpeg_tpu_torch.pipelines.fast",
                                     "jpeg_tpu_torch.pipelines.encode",
+                                    "jpeg_tpu_torch.pipelines.decode",
+                                    "jpeg_tpu_torch.kernels.huffdec",
+                                    "jpeg_tpu_torch.golden.decoder",
                                     "jpeg_tpu_torch.utils.guards",
                                     "jpeg_tpu_torch.convert",
                                     "chip_smoke"])
@@ -67,7 +70,8 @@ def test_no_file_of_the_port_imports_jax_or_jpeg_tpu():
 def test_kernel_modules_import_without_nvcc(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path))
     out = _run("import shutil, jpeg_tpu_torch.kernels.front, "
-               "jpeg_tpu_torch.kernels.fused\n"
+               "jpeg_tpu_torch.kernels.fused, "
+               "jpeg_tpu_torch.kernels.huffdec\n"
                "from jpeg_tpu_torch import _build\n"
                "print(shutil.which('nvcc'), _build._libs)", env=env)
     assert out.split() == ["None", "{}"]
