@@ -6,7 +6,7 @@
 Phases, each of which raises (and so exits non-zero) on any failure:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
-   the build of the ten CUDA kernels (seven sources) from
+   the build of the eleven CUDA kernels (seven sources) from
    ``jpeg_tpu_torch/csrc`` and of the port's native host library (g++);
 2. every kernel against its plain PyTorch twin on the card, at the shapes
    of a 16x640x640 batch (E with and without the dynamic-sampled mask, F
@@ -57,6 +57,22 @@ Phases, each of which raises (and so exits non-zero) on any failure:
       host decoder's exactly, and the pixels must be within jpeg_tpu's
       device-vs-host bound (max |diff| <= 2, > 99.9 % within 1) of the CPU
       path's reconstruction and of the golden decoder's.
+   f. speculative decode of streams without restart markers (engine
+      "device", then "auto" with warnings as errors): first kernel H
+      (``scan_positions``) against its twin on every lane of a 3-scan
+      1920x1280 file at the round-1 guesses and at the fixpoint, clean and
+      corrupted, and G's speculative mode against its twin on the
+      fixpoint's payload of a DRI-less 4:2:0 1920x1088 file; the
+      fixpoint's decision on two corrupted copies of a 3-scan 640x640
+      file against the CPU path's; then ``decode_jpeg`` of the port's
+      default 3-scan files at 640x640 and 1920x1280, ``decode_jpeg_batch``
+      of 16 at 640x640, ``decode_jpeg`` of DRI-less interleaved 4:2:0
+      1920x1088, 4:2:2 1920x1080 and 4:4:4 1080x1080 files and of an
+      ``encode_gray`` 1920x1280 file, and ``speculative_decode_restart``
+      of 3e's r17 and r27 files.  Every case must converge (H and G
+      launched; the rounds are printed), its zz must equal the native
+      decoder's and its pixels be within jpeg_tpu's bound of the CPU path
+      and the golden decoder.
    The JPEG bytes must equal those of the same call on the CPU (the plain
    twins; a batch of 3a-3c compares its first 4 images, since each
    image's tables are its own), the first file of each run must decode
@@ -77,7 +93,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    4:4:4 case of 3d: its call ms, device time by kernel and idle share;
    each decode case of 3e: its call ms, device time, kernel G's part and
    idle share; kernel G alone at the 16x640x640 lanes with its bound, its
-   twin at the reduced input, and the host entropy route on those files.
+   twin on the same inputs, and the host entropy route on those files;
+   each case of 3f: its call ms, device time, H's µs per round x rounds,
+   G's payload µs, idle share and the host entropy route on its files
+   (the restart cases beside kernel G's route on the same files); H and
+   G's speculative mode alone, each beside its twin and bound.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 the JSON verdict.  Inputs are synthetic images (smooth gradients plus hard
@@ -112,6 +132,7 @@ from jpeg_tpu_torch.ops.color import (LAYOUTS, SAMPLING_GEOMETRY, SCAN_CHROMA,
                                       SCAN_Y)
 from jpeg_tpu_torch.ops.dct import set_exact_matmul
 from jpeg_tpu_torch.pipelines import decode as pdec
+from jpeg_tpu_torch.pipelines import speculative as pspec
 from jpeg_tpu_torch.pipelines.fast import analyze_zz
 
 # (batch, height, width, restart_interval_mcu_rows)
@@ -156,13 +177,35 @@ DECODE_GEOMETRIES = [
     ("444", 4, 1080, 1080, 1, "dynamic")]
 DECODE_GRAY = (1280, 1920, 4)
 DECODE_ONE = ("420", 1, 1280, 1920, 1, "dynamic")
+# speculative decode (phase 3f): the port's default 3-scan files (height,
+# width) by decode_jpeg and a decode_jpeg_batch of 16 at 640x640; DRI-less
+# interleaved files (sampling, height, width); an encode_gray file; and
+# phase 3e's few-segment restart files (its cases 2 and 3) through
+# speculative_decode_restart
+SPEC_SCAN = [(640, 640), (1280, 1920)]
+SPEC_BATCH = (16, 640, 640)
+SPEC_INTERLEAVED = [("420", 1088, 1920), ("422", 1080, 1920),
+                    ("444", 1080, 1080)]
+SPEC_GRAY = (1280, 1920)
+SPEC_RESTART_CASES = (2, 3)
+SPEC_RNG_OFFSET = 6  # phase 3f's frames: default_rng(seed + 6)
+# the frames of phase 3f (at --seed 0) where jpeg_tpu's own decode misses
+# the bound below against the golden decoder (ROADMAP §3): (case label,
+# image) -> its reading there, (max |diff|, share within 1 to six places),
+# to which the card is held instead; tests/test_torch_golden_bound.py
+# holds jpeg_tpu's decode of each frame to that reading
+REFERENCE_GOLDEN_MISSES = {
+    ("decode_jpeg_batch 3-scan 16x640x640", 0): (2, 0.996847),
+    ("decode_jpeg_batch 3-scan 16x640x640", 2): (2, 0.980807),
+    ("decode_jpeg DRI-less interleaved 4:2:0 1920x1088", 0): (2, 0.994635),
+}
 # jpeg_tpu's device-vs-host reconstruction bound (its
 # tests/test_device_decode.py:18): f32 sums in another order
 RGB_MAX_DIFF, RGB_WITHIN_1 = 2, 0.999
 # the CUDA kernels by their names in a profile, and the copies
 OWN_KERNELS = ("front_dct", "symbolize_bits_kernel", "segment_offsets",
                "place_kernel", "symbolize_fields_kernel", "attach_pf",
-               "decode_segments_kernel")
+               "decode_segments_kernel", "scan_positions_kernel")
 
 # kernel -> (source, the TPU kernels it replaces: file:line of pallas_call)
 KERNEL_INFO = {
@@ -227,6 +270,15 @@ KERNEL_INFO = {
                      "dct_index_xt)", "jpeg_tpu/kernels/fused.py:688 (K18a)"),
     "decode_segments": ("jpeg_tpu_torch/csrc/huffdec.cu",
                         "jpeg_tpu/kernels/huffdec.py:853 (K16)"),
+    # kernel G's speculative mode: launches are decode_segments' on the
+    # speculative paths (phase 3f)
+    "decode_segments speculative": ("jpeg_tpu_torch/csrc/huffdec.cu "
+                                    "(decode_segments_kernel, entry and "
+                                    "phase)",
+                                    "jpeg_tpu/kernels/huffdec.py:853 (K16, "
+                                    "entry=, phase=, phased=True)"),
+    "scan_positions": ("jpeg_tpu_torch/csrc/huffdec.cu",
+                       "jpeg_tpu/kernels/huffdec.py:761 (K17)"),
 }
 
 # NVIDIA's H100 SXM data sheet: HBM3 rate, FP32 rate outside the tensor
@@ -870,13 +922,16 @@ def check_decode_case(case: dict, imgs: list[torch.Tensor], dev) -> str:
             + (f" | ... ({len(parts)} images)" if len(parts) > 2 else ""))
 
 
-def decode_bound(streams: np.ndarray, nblk_seg: int, n_images: int) -> float:
-    """bound_ms of kernel G: its bytes over the HBM rate (the streams and
-    each lane's block count read once, each image's one table set read
-    once, although the kernel takes a copy per lane, the zz written once)."""
-    S = streams.shape[0]
-    nbytes = streams.nbytes + n_images * (64 * 4 * 2 + 256 * 4) + S * 4 \
-        + S * nblk_seg * 64 * 4
+def huff_bound(entropy_bytes: int, table_sets: int, lane_ints: int,
+               out_bytes: int) -> float:
+    """bound_ms of kernel G or H: the bytes the function must move over the
+    HBM rate.  The un-stuffed entropy bytes read once (not the rows'
+    padding, nor the slack a lane reads past its chunk), each table set
+    (maxc, delt, hvp) once, although the kernels take a copy per lane,
+    ``lane_ints`` int32 of per-lane inputs, and the outputs written once
+    (for G, the zz of the true blocks, not the padded lanes)."""
+    nbytes = entropy_bytes + table_sets * (64 * 4 * 2 + 256 * 4) \
+        + lane_ints * 4 + out_bytes
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -928,6 +983,390 @@ def decode_phase(dcases: list[dict], dev, launches: dict):
         print("  " + check_decode_case(case, imgs, dev))
         runs.append((case["label"], fn))
     return twin_err, g_in, twin_in["clean"], runs
+
+
+def spec_cases(rng: np.random.Generator, dev, dcases: list[dict]):
+    """The runs of phase 3f: each ``label``, ``files``, ``originals``
+    (their pixels, or None), ``call`` ("one": decode_jpeg of the file,
+    "batch": decode_jpeg_batch, "restart": speculative_decode_restart of
+    each file) and ``kernels`` (those its main path must launch)."""
+    path = ("scan_positions", "decode_segments")
+    cases = []
+    for h, w in SPEC_SCAN:
+        frame = synthetic_batch(rng, 1, h, w)[0]
+        cases.append(dict(
+            label=f"decode_jpeg 3-scan {w}x{h} (JpegEncoder(EncodeConfig()))",
+            files=[JpegEncoder(EncodeConfig(), device=dev).encode(
+                torch.from_numpy(frame).to(dev))], originals=[frame],
+            call="one", kernels=path))
+    b, h, w = SPEC_BATCH
+    batch = synthetic_batch(rng, b, h, w)
+    cases.append(dict(
+        label=f"decode_jpeg_batch 3-scan {b}x{w}x{h}",
+        files=JpegEncoder(EncodeConfig(), device=dev).encode_batch(
+            torch.from_numpy(batch).to(dev)), originals=list(batch),
+        call="batch", kernels=path))
+    for samp, h, w in SPEC_INTERLEAVED:
+        frame = synthetic_batch(rng, 1, h, w)
+        cfg = EncodeConfig(scan_layout="interleaved", subsampling=samp)
+        data = FastBatchEncoder(h, w, cfg, device=dev).encode_batch(
+            torch.from_numpy(frame).to(dev))[0]
+        st = khd.parse_scan_structure(data, require_restarts=False)
+        if st["restart_interval"] or b"\xff\xdd" in data[:data.index(
+                b"\xff\xda")]:
+            raise AssertionError(f"{samp} {w}x{h}: the file carries a DRI")
+        cases.append(dict(
+            label=f"decode_jpeg DRI-less interleaved {LABEL[samp]} {w}x{h}",
+            files=[data], originals=list(frame), call="one", kernels=path))
+    h, w = SPEC_GRAY
+    plane = synthetic_batch(rng, 1, h, w)[0, ..., 0]
+    cases.append(dict(
+        label=f"decode_jpeg gray {w}x{h} (encode_gray, no restarts)",
+        files=[encode_gray(torch.from_numpy(plane).to(dev), EncodeConfig(),
+                           device=dev)], originals=None, call="one",
+        kernels=path))
+    for k in SPEC_RESTART_CASES:
+        cases.append(dict(
+            label="speculative_decode_restart of " + dcases[k]["label"],
+            files=dcases[k]["files"], originals=dcases[k]["originals"],
+            call="restart", kernels=path))
+    return cases
+
+
+def spec_call(case: dict, engine: str, dev):
+    """The case's call on the card -> its images (synchronized)."""
+    files = case["files"]
+    if case["call"] == "one":
+        out = [decode_jpeg(files[0], engine, device=dev)]
+    elif case["call"] == "batch":
+        out = decode_jpeg_batch(files, engine, device=dev)
+    else:
+        out = [pspec.speculative_decode_restart(f, device=dev) for f in files]
+        if any(o is None for o in out):
+            raise AssertionError(f"{case['label']}: no fixpoint")
+    torch.cuda.synchronize()
+    return out
+
+
+def restart_lanes(data: bytes, dev) -> "pspec.SpecLanes":
+    """The lanes ``speculative_decode_restart`` gives one restart file."""
+    rst = pspec._restart_spec(data)
+    return pspec.prepare_lanes(rst["chains"], dev, pspec._auto_lane_bytes(
+        sum(map(len, rst["info"]["segs"]))), rst["sampling"])
+
+
+def case_planes(case: dict, dev) -> list[list[torch.Tensor]]:
+    """The speculative path's coefficients of each of the case's files,
+    plane by plane, from the launches of the case's main path (one per
+    file for the restart case; else one combined launch for all its
+    files), run again."""
+    files = case["files"]
+    if case["call"] == "restart":  # each restart segment a chain
+        out = []
+        for f in files:
+            got = pspec._spec_lanes(restart_lanes(f, dev))
+            if got is None:
+                raise AssertionError(f"{case['label']}: no fixpoint")
+            info = pspec._restart_spec(f)["info"]
+            em = torch.cat(got).reshape(info["mcus"], info["period"], 64)
+            out.append([p for p in pdec._em_to_planes(
+                em, info["samp"], info["mx"], info["my"]) if p is not None])
+        return out
+    got = pspec._spec_lanes(spec_lanes(files, dev))
+    if got is None:
+        raise AssertionError(f"{case['label']}: no fixpoint")
+    out, off = [], 0
+    for f in files:
+        p = pspec._parse_spec(f)
+        n = len(p["scan_list"])
+        out.append([t for t in pspec._planes_spec(p, got[off:off + n])[1:4]
+                    if t is not None])
+        off += n
+    return out
+
+
+def golden_agreement(got: torch.Tensor, gold: np.ndarray, what: str,
+                     known) -> str:
+    """``rgb_agreement`` against the golden decoder; on a frame of
+    ``REFERENCE_GOLDEN_MISSES`` (``known``: its reading, else None), where
+    jpeg_tpu's own decode misses that bound, the card is held to that
+    reading instead."""
+    try:
+        return rgb_agreement(got, gold, what)
+    except AssertionError:
+        if known is None:
+            raise
+    diff = np.abs(got.cpu().numpy().astype(np.int32) - gold.astype(np.int32))
+    share = float(np.mean(diff <= 1))
+    if diff.max() > known[0] or share < known[1]:
+        raise AssertionError(f"{what}: max |diff| {diff.max()}, share within "
+                             f"1 {share:.6f}; jpeg_tpu's decode of this "
+                             f"frame: {known[0]}, {known[1]:.6f}")
+    return (f"max |diff| {diff.max()}, within 1 {share:.6f} (a frame where "
+            f"jpeg_tpu's decode misses the bound too: max |diff| {known[0]}, "
+            f"within 1 {known[1]:.6f})")
+
+
+def check_spec_case(case: dict, imgs: list[torch.Tensor], dev,
+                    misses: dict) -> str:
+    """The speculative path's coefficients, from the case's own launch
+    layout, against the native decoder's (exact), the pixels against the
+    CPU path's and the golden decoder's (jpeg_tpu's bound, or its reading
+    on a frame of ``misses``) and, where there are originals, PSNR."""
+    parts = []
+    for i, (f, img, planes) in enumerate(zip(case["files"], imgs,
+                                             case_planes(case, dev))):
+        comps, coeffs, *_ = golden.parse_coefficients(f)
+        for got, comp in zip(planes, comps):
+            err = max_abs_err((got.cpu(),),
+                              (torch.from_numpy(coeffs[comp.comp_id]),))
+            if err:
+                raise AssertionError(f"{case['label']}: image {i}: the "
+                                     f"speculative zz and the native "
+                                     f"decoder's differ, max_abs_err {err}")
+        cpu = decode_jpeg(f, "host", device="cpu").numpy()
+        what = f"{case['label']} image {i}"
+        parts.append(f"image {i}: vs the CPU path "
+                     + rgb_agreement(img, cpu, what)
+                     + "; vs the golden decoder "
+                     + golden_agreement(img, golden.decode(f), what,
+                                        misses.get((case["label"], i))))
+        if case["originals"] is not None:
+            quality_db = golden.psnr(case["originals"][i], img.cpu().numpy())
+            if not quality_db > MIN_PSNR_DB:
+                raise AssertionError(f"{what}: PSNR {quality_db:.2f} dB <= "
+                                     f"{MIN_PSNR_DB}")
+            parts[-1] += f"; PSNR {quality_db:.2f} dB"
+    return (f"zz of {len(case['files'])} image(s) equal to the native "
+            f"decoder's (max_abs_err 0); " + " | ".join(parts[:2])
+            + (f" | ... ({len(parts)} images)" if len(parts) > 2 else ""))
+
+
+def spec_lanes(files: list[bytes], dev) -> "pspec.SpecLanes":
+    """The lanes of one combined launch of ``decode_jpeg`` (one file) or
+    ``decode_jpeg_batch`` (several of one sampling) on non-restart files."""
+    ps = [pspec._parse_spec(f) for f in files]
+    return pspec.scan_lanes([sc for p in ps for sc in p["scan_list"]], dev,
+                            sampling=ps[0]["sampling"])
+
+
+def spec_bound(lanes: "pspec.SpecLanes", out_bytes: int) -> float:
+    """bound_ms of kernel H or G on these lanes (``huff_bound``): the
+    chains' un-stuffed bytes, a table set per chain, three int32 inputs
+    per lane (entry, phase, and the limit or the block count) and
+    ``out_bytes``."""
+    return huff_bound(int(lanes.limit_bits.sum()) // 8, len(lanes.need),
+                      3 * len(lanes.starts), out_bytes)
+
+
+def spec_kernel_phase(scan_file: bytes, il_file: bytes, dev):
+    """Phase 3f (1): kernel H against its twin on every lane of the 3-scan
+    file at the round-1 guesses and at the fixpoint, clean and corrupted;
+    G's speculative mode against its twin on the DRI-less 4:2:0 file's
+    payload at its fixpoint.  Returns (H's err, G's err, H's call and twin
+    at the fixpoint, G's call and twin, H's bound, G's bound, labels)."""
+    lanes = spec_lanes([scan_file], dev)
+    S = lanes.streams.shape[0]
+    cap = pspec.first_cap(lanes)
+    fx = pspec.fixpoint(lanes)
+    if fx is None:
+        raise AssertionError("3-scan file: no fixpoint")
+    corrupt = lanes.streams.clone()
+    corrupt[1, 5] ^= 1 << 11  # a flipped bit: lane 1 loses sync
+    corrupt[2, 8:10] = -1     # 64 one-bits: no code matches (length 17)
+    h_err = 0
+    calls = {}
+    for label, streams, entries, phases in (
+            ("round 1, clean", lanes.streams, np.zeros(S, np.int64),
+             lanes.prior),
+            ("round 1, corrupted", corrupt, np.zeros(S, np.int64),
+             lanes.prior),
+            ("fixpoint, clean", lanes.streams, fx[0], fx[1]),
+            ("fixpoint, corrupted", corrupt, fx[0], fx[1])):
+        ep = pspec._put(dev, entries, phases)
+        args = (streams, *lanes.tables, ep[0:1], lanes.limits, cap,
+                lanes.max_words, lanes.sampling, ep[1:2])
+        got = khd.scan_positions(*args)
+        want = khd.scan_positions_plain(*args)
+        err = max_abs_err(tuple(g.cpu() for g in got),
+                          tuple(w.cpu() for w in want))
+        h_err = max(h_err, err)
+        print(f"kernel scan_positions ({label}: all {S} lanes of the 3-scan "
+              f"file, cap {cap}): 3 x {S} int32: "
+              f"max_abs_err {err} (tolerance: exact); lanes bad "
+              f"{int(got[2].sum())}, blocks {int(got[1].sum())}")
+        if err:
+            raise AssertionError(f"kernel scan_positions disagrees with its "
+                                 f"plain twin: max_abs_err {err}")
+        if label == "fixpoint, clean":
+            calls["H"] = (lambda a=args: khd.scan_positions(*a),
+                          lambda a=args: khd.scan_positions_plain(*a))
+    il = spec_lanes([il_file], dev)
+    gfx = pspec.fixpoint(il)
+    if gfx is None:
+        raise AssertionError("DRI-less 4:2:0 file: no fixpoint")
+    gargs, gkw = pspec.payload_inputs(il, *gfx)
+    got = khd.decode_segments(*gargs, **gkw)
+    want = khd.decode_segments_plain(*gargs, **gkw)
+    g_err = max_abs_err((got.cpu(),), (want.cpu(),))
+    print(f"kernel decode_segments speculative (the fixpoint's payload of "
+          f"the DRI-less 4:2:0 file: {il.streams.shape[0]} lanes x "
+          f"{gargs[6]} blocks, entry and phase): {tuple(got.shape)} "
+          f"{got.dtype}: max_abs_err {g_err} (tolerance: exact)")
+    if g_err:
+        raise AssertionError(f"kernel decode_segments (speculative) "
+                             f"disagrees with its plain twin: max_abs_err "
+                             f"{g_err}")
+    calls["G"] = (lambda: khd.decode_segments(*gargs, **gkw),
+                  lambda: khd.decode_segments_plain(*gargs, **gkw))
+    bounds_ = {"scan_positions": (spec_bound(lanes, 3 * S * 4), "bytes"),
+               "decode_segments speculative": (spec_bound(
+                   il, sum(il.need) * 64 * 4), "bytes")}
+    shapes = {"scan_positions": f"{S} lanes x cap {cap} of the 3-scan "
+                                f"{SPEC_SCAN[1][1]}x{SPEC_SCAN[1][0]} file",
+              "decode_segments speculative":
+                  f"{il.streams.shape[0]} lanes x {gargs[6]} blocks of the "
+                  f"DRI-less 4:2:0 {SPEC_INTERLEAVED[0][2]}x"
+                  f"{SPEC_INTERLEAVED[0][1]} file"}
+    return h_err, g_err, calls, bounds_, shapes
+
+
+def spec_decisions(data: bytes, dev) -> list[str]:
+    """Corrupted copies of a 3-scan file (a run of one-bits a quarter into
+    its Y scan; one flipped bit in its middle): the fixpoint's decision
+    on the card must equal the CPU path's, and an accepted decode its
+    coefficients."""
+    p = pspec._parse_spec(data)
+    ent = p["scan_list"][0][0]
+    start = data.index(ent)
+    cut = start + len(ent) // 4
+    cut += data[cut - 1] == 0xFF
+    mid = bytearray(data)
+    pos = start + len(ent) // 2
+    mid[pos] ^= 0x10 if mid[pos] != 0xEF else 0x01
+    out = []
+    for label, bad in (("a run of 48 one-bits",
+                        data[:cut] + b"\xff\x00" * 6 + data[cut:]),
+                       ("one flipped bit", bytes(mid))):
+        q = pspec._parse_spec(bad)
+        card = pspec._spec_scans(q["scan_list"], device=dev)
+        cpu = pspec._spec_scans(q["scan_list"], device="cpu")
+        if (card is None) != (cpu is None):
+            raise AssertionError(f"corrupted copy ({label}): the card's "
+                                 f"decision differs from the CPU path's")
+        if card is not None:
+            for a, b in zip(card, cpu):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"corrupted copy ({label}): "
+                                         f"accepted, zz differ")
+        what = ("host route (no fixpoint)" if card is None
+                else "accepted, zz equal")
+        out.append(f"{label}: {what} on the card and the CPU")
+    return out
+
+
+def case_lanes(case: dict, dev) -> str:
+    """The lanes of the case's launches (one combined launch per call of
+    decode_jpeg or decode_jpeg_batch; one per file for the restart case):
+    their count and the average blocks a lane."""
+    layouts = ([restart_lanes(f, dev) for f in case["files"]]
+               if case["call"] == "restart" else [spec_lanes(case["files"],
+                                                             dev)])
+    return " + ".join(f"{len(ln.starts)} lanes, "
+                      f"{sum(ln.need) // len(ln.starts)} blocks a lane on "
+                      f"average" for ln in layouts)
+
+
+def spec_phase(scases: list[dict], dev, launches: dict, misses: dict):
+    """Phase 3f (2): each case through "device" with the launch counts
+    reset just before it (added to ``launches``, kernel G's under its
+    speculative row), checked by ``check_spec_case``, then again under
+    "auto" with warnings as errors.  Returns [(label, zero-argument call,
+    H launches per call)]."""
+    import warnings
+    runs = []
+    for case in scases:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        imgs = spec_call(case, "device", dev)
+        counts = launch_counts()
+        print(f"main path {case['label']}: launches {json.dumps(counts)}; "
+              f"rounds (H launches) {counts['scan_positions']}; "
+              f"{case_lanes(case, dev)}")
+        for name in case["kernels"]:
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the "
+                                     f"path {case['label']}")
+        for name, n in counts.items():
+            launches["decode_segments speculative" if name == "decode_segments"
+                     else name] += n
+        print("  " + check_spec_case(case, imgs, dev, misses))
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            again = spec_call(case, "auto", dev)
+        if not all(torch.equal(a, b) for a, b in zip(again, imgs)):
+            raise AssertionError(f"{case['label']}: \"auto\" and \"device\" "
+                                 f"differ")
+        runs.append((case["label"],
+                     lambda c=case: spec_call(c, "device", dev),
+                     counts["scan_positions"]))
+    return runs
+
+
+def spec_timings(spec_runs, scases, spec_calls, spec_bounds, spec_shapes,
+                 card: str, runs: int, decode_n: int, dev, times: dict,
+                 bound: dict) -> None:
+    """Phase 4 of the speculative decode: each case's call, device time, H's
+    time per round x rounds, G's payload, idle share and the host entropy
+    route on the same files; speculative_decode_restart beside kernel G's
+    route; then H and G's speculative mode alone, in turns with their twins
+    (filling ``times`` and ``bound``)."""
+    t_spec = time.perf_counter()
+    for label, fn, rounds in spec_runs:
+        call_ms = host_ms(fn, decode_n)
+        per_call, idle = device_profile(fn, decode_n)
+        h_us = sum(v for k, v in per_call.items() if "scan_positions" in k)
+        g_us = sum(v for k, v in per_call.items() if "decode_segments" in k)
+        case = next(c for c in scases if c["label"] == label)
+        host_route = host_ms(lambda: [golden.parse_coefficients(f)
+                                      for f in case["files"]], decode_n)
+        print(f"timing {label} on [{card}]: {call_ms:.4f} ms per call; "
+              f"median of {decode_n}; host entropy route on the same files "
+              f"(golden.parse_coefficients) {host_route:.4f} ms")
+        print(f"  device µs per call (torch.profiler, {decode_n} calls): "
+              f"total {sum(per_call.values()):.2f}, kernel H "
+              f"{h_us:.2f} = {h_us / max(rounds, 1):.2f} per round x "
+              f"{rounds} rounds, kernel G payload {g_us:.2f}; device idle "
+              f"share {idle:.4f}; by name: " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in sorted(
+                      per_call.items(), key=lambda kv: -kv[1])[:8]))
+        if case["call"] == "restart":
+            def g_route(files=case["files"]):
+                out = [decode_jpeg(f, "device", device=dev) for f in files]
+                torch.cuda.synchronize()
+                return out
+            g_ms = host_ms(g_route, decode_n)
+            g_call, g_idle = device_profile(g_route, decode_n)
+            g_only = sum(v for k, v in g_call.items()
+                         if "decode_segments" in k)
+            print(f"  kernel G's route (decode_jpeg, one lane a segment) on "
+                  f"the same files: {g_ms:.4f} ms per call; device µs "
+                  f"{sum(g_call.values()):.2f}, kernel G {g_only:.2f}; "
+                  f"device idle share {g_idle:.4f}")
+    for name, key in (("scan_positions", "H"),
+                      ("decode_segments speculative", "G")):
+        kernel, twin = spec_calls[key]
+        p0, k0, k1, p1 = (cuda_ms(twin, 1, 1, 0), cuda_ms(kernel, runs),
+                          cuda_ms(kernel, runs), cuda_ms(twin, 1, 1, 0))
+        times[name] = ((k0 + k1) / 2, (p0 + p1) / 2, None)
+        bound[name] = spec_bounds[name]
+        print(f"timing kernel {name} at {spec_shapes[name]} on [{card}]: "
+              f"{times[name][0]:.4f} ms ({k0:.4f}, {k1:.4f}), bound "
+              f"{bound[name][0]:.5f} ms (bytes); plain twin on the same "
+              f"inputs {times[name][1]:.4f} ms ({p0:.4f}, {p1:.4f}); median "
+              f"of {runs} (twin: one call each)")
+    print(f"the speculative decode timings took "
+          f"{time.perf_counter() - t_spec:.1f} s")
 
 
 def main() -> int:
@@ -1178,7 +1617,8 @@ def main() -> int:
                        for _, h, w, r in GEOMETRIES] for mode in MODES}
     path_kernels = {"fixed": FIXED_PATH, "dynamic": DYNAMIC_PATH,
                     "dynamic-sampled": DYNAMIC_PATH}
-    launches = dict.fromkeys([*calls, *launch_counts()], 0)
+    launches = dict.fromkeys([*calls, *launch_counts(),
+                              "decode_segments speculative"], 0)
     fixed_dht = None
     for mode in MODES:
         torch.cuda.synchronize()
@@ -1288,6 +1728,21 @@ def main() -> int:
     errs["decode_segments"], g_in, g_dev, decode_runs = decode_phase(
         dcases, dev, launches)
     print(f"phase 3e (decode) took {time.perf_counter() - t_decode:.1f} s")
+
+    # -- phase 3f: speculative decode: H and G against their twins, then
+    # each case ---------------------------------------------------------------
+    t_spec = time.perf_counter()
+    scases = spec_cases(np.random.default_rng(args.seed + SPEC_RNG_OFFSET),
+                        dev, dcases)
+    (errs["scan_positions"], errs["decode_segments speculative"], spec_calls,
+     spec_bounds, spec_shapes) = spec_kernel_phase(
+        scases[1]["files"][0], scases[3]["files"][0], dev)
+    for line in spec_decisions(scases[0]["files"][0], dev):
+        print(f"decision on a corrupted copy of {scases[0]['label']}: {line}")
+    spec_runs = spec_phase(scases, dev, launches,
+                           REFERENCE_GOLDEN_MISSES if args.seed == 0 else {})
+    print(f"phase 3f (speculative decode) took "
+          f"{time.perf_counter() - t_spec:.1f} s")
 
     # -- phase 4: timings ----------------------------------------------------
     for mode in MODES:
@@ -1424,7 +1879,7 @@ def main() -> int:
               f"device idle share {idle:.4f}; by name: " + ", ".join(
                   f"{k} {v:.2f}" for k, v in sorted(
                       per_call.items(), key=lambda kv: -kv[1])[:8]))
-    g_streams, _, _, _, _, g_samp, g_seg, g_mw = g_in
+    g_streams, _, _, _, g_nblk, g_samp, g_seg, g_mw = g_in
 
     def g_full():
         return khd.decode_segments(*g_dev, g_samp, g_seg, g_mw)
@@ -1437,8 +1892,11 @@ def main() -> int:
     host_route = host_ms(lambda: [golden.parse_coefficients(f)
                                   for f in dcases[0]["files"]], decode_n)
     times["decode_segments"] = ((k0 + k1) / 2, (p0 + p1) / 2, None)
-    bound["decode_segments"] = (
-        decode_bound(g_streams, g_seg, len(dcases[0]["files"])), "bytes")
+    g_infos = [pdec._parse_device_eligible(f) for f in dcases[0]["files"]]
+    bound["decode_segments"] = (huff_bound(
+        sum(len(seg) for info in g_infos for seg in info["segs"]),
+        len(g_infos), g_streams.shape[0], int(g_nblk.sum()) * 64 * 4),
+        "bytes")
     print(f"timing kernel decode_segments (G) at {dcases[0]['label']} "
           f"({g_streams.shape[0]} lanes x {g_seg} blocks, {g_mw} words) on "
           f"[{card}]: {times['decode_segments'][0]:.4f} ms ({k0:.4f}, "
@@ -1452,13 +1910,17 @@ def main() -> int:
           f"(twin: one call each); the decode timings took "
           f"{time.perf_counter() - t_decode:.1f} s")
 
+    spec_timings(spec_runs, scases, spec_calls, spec_bounds, spec_shapes,
+                 card, args.runs, decode_n, dev, times, bound)
+
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1], "launches": launches[name],
          "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bound[name][0],
          "bound_by": bound[name][1], "library_ms": times[name][2]}
-        for name in [*calls, "decode_segments"]]}
+        for name in [*calls, "decode_segments",
+                     "decode_segments speculative", "scan_positions"]]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -52,7 +52,9 @@ SIGNATURES = {
     "attach_pf": ("attach_pf", "jt_attach_pf",
                   [_VOID] * 5 + [_INT] * 3 + [_VOID]),
     "decode_segments": ("huffdec", "jt_decode_segments",
-                        [_VOID] * 6 + [_INT] * 5 + [_VOID]),
+                        [_VOID] * 8 + [_INT] * 5 + [_VOID]),
+    "scan_positions": ("huffdec", "jt_scan_positions",
+                       [_VOID] * 8 + [_INT] * 5 + [_VOID]),
 }
 # the sources to build, in SIGNATURES order
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))

@@ -1,23 +1,31 @@
-"""Kernel G, ``decode_segments``: baseline Huffman decode of restart
-segments, and the host parsing that prepares its inputs.
+"""Kernels G (``decode_segments``) and H (``scan_positions``): baseline
+Huffman decode on the card, and the host parsing that prepares its inputs.
 
 Baseline entropy decode is bit-serial within a restart segment, and the
 segments are independent: the DC predictors reset at every RSTn (T.81
-F.2.1.3.1).  Kernel G (``csrc/huffdec.cu``) computes the restart mode of
+F.2.1.3.1).  Kernel G (``csrc/huffdec.cu``) computes
 ``jpeg_tpu.kernels.huffdec.decode_segments`` (``_hd_kernel``, K16): one
-segment per lane, per-lane canonical tables, zig-zag coefficients with
-the DC accumulated from 0 in each lane.  ``decode_segments_plain`` is its
-plain twin.
+lane per row of bits, per-lane canonical tables, zig-zag coefficients
+with the DC accumulated from 0 in each lane.  In restart mode each lane
+is one segment; in the speculative mode (``entry``, ``phase``,
+``phased``) each lane is a chunk of a scan that starts at its own entry
+bit and, interleaved, its own MCU position.  Kernel H (same source)
+computes ``jpeg_tpu.kernels.huffdec.scan_positions`` (``_scan_kernel``,
+K17): the speculative decode's positions-only pass, which walks blocks
+from each lane's entry bit to its limit and gives the exit bit, the
+block count and a bad flag.  ``decode_segments_plain`` and
+``scan_positions_plain`` are their plain twins.
 
 The host half is the port's copy of ``jpeg_tpu.kernels.huffdec``'s
 (which imports jax): ``canonical_tables``, ``parse_scan_structure``,
-``split_segments``, ``unstuff_segments``, ``pack_streams`` and
-``lane_tables``.  ``jpeg_tpu`` pads the lanes to whole 128-lane groups and
-buckets the words to powers of two for its compiler; the port packs
-exactly one row per segment and exactly the words the longest one needs
-(the kernel reads nothing past a row), and ``decode_segments`` takes
-either form.  ``_hd_kernel``'s scheduling constants (``_LG``, ``_WNDW``,
-``_SYM_GROUP``, ``_CHUNK``, ``_G_CANDS``, ``_PEEL_LUMA``, ``_PEEL_SCAN``)
+``parse_noninterleaved_scans``, ``split_segments``, ``unstuff_segments``,
+``pack_streams`` and ``lane_tables``.  ``jpeg_tpu`` pads the lanes to
+whole 128-lane groups and buckets the words to powers of two for its
+compiler; the port packs exactly one row per lane and exactly the words
+the longest one needs (the kernels read nothing past a row: bits there
+read as zeros), and both kernels take either form.  The TPU kernels'
+scheduling constants (``_LG``, ``_WNDW``, ``_SYM_GROUP``, ``_CHUNK``,
+``_G_CANDS``, ``_PEEL_LUMA``, ``_PEEL_SCAN``, the ``peel_luma`` argument)
 are answers for the TPU's lanes and compiler, and have no counterpart.
 """
 from __future__ import annotations
@@ -75,13 +83,15 @@ def canonical_tables(bits: np.ndarray, huffval: np.ndarray):
 
 # -- host-side preparation -------------------------------------------------
 
-def parse_scan_structure(data: bytes):
+def parse_scan_structure(data: bytes, require_restarts: bool = True):
     """Light marker walk (no entropy decode) for device-decode routing.
 
     Returns None unless the stream is a single-scan BASELINE image with
     a restart interval, either 3-component interleaved or single-component
     grayscale.  Otherwise returns a dict with the geometry, per-table
     DHT specs, quantizers (raster order), and the entropy byte range.
+    ``require_restarts=False`` also returns DRI-less streams (the
+    speculative interleaved path, ``pipelines.speculative``).
     """
     if data[:2] != b"\xff\xd8":
         return None
@@ -146,7 +156,7 @@ def parse_scan_structure(data: bytes):
             scan = (tabs, ent_start)
             break
         pos += seg_len
-    if scan is None or not width or ri == 0:
+    if scan is None or not width or (require_restarts and ri == 0):
         return None
     tabs, ent_start = scan
     ent_end = _entropy_end(data, ent_start)
@@ -164,6 +174,95 @@ def _entropy_end(data: bytes, start: int) -> int:
     nxt = b[cand + 1]
     stop = cand[(nxt != 0) & (nxt != 0xFF) & ((nxt < 0xD0) | (nxt > 0xD7))]
     return int(stop[0]) if len(stop) else len(data)
+
+
+def parse_noninterleaved_scans(data: bytes):
+    """Marker walk for baseline streams whose every scan is a single
+    component: grayscale images and the reference's 3-scan layout.
+
+    These scans have no MCU phase (data units are bare 8x8 blocks through
+    one DC/AC table pair), which makes them speculatively decodable
+    without restart markers (``pipelines.speculative``).  Returns None
+    for interleaved, progressive or restart streams; else a dict with the
+    geometry, quantizers, and per-scan (cid, dc_spec, ac_spec, entropy
+    bytes), the table specs taken at each SOS (DHT may be redefined
+    between scans).
+    """
+    if data[:2] != b"\xff\xd8":
+        return None
+    pos = 2
+    quant: dict[int, np.ndarray] = {}
+    dht: dict = {}
+    comps: list[tuple[int, int, int, int]] = []
+    width = height = 0
+    scans = []
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF:
+            return None
+        marker = data[pos + 1]
+        pos += 2
+        if marker == 0xD9:
+            break
+        if marker == 0xFF:
+            pos -= 1
+            continue
+        seg_len = (data[pos] << 8) | data[pos + 1]
+        seg = data[pos + 2:pos + seg_len]
+        if marker == 0xDB:
+            p = 0
+            while p < len(seg):
+                if seg[p] >> 4:
+                    return None
+                zzq = np.frombuffer(seg[p + 1:p + 65],
+                                    np.uint8).astype(np.int32)
+                q = np.zeros(64, np.int32)
+                q[T.SCAN_ORDER] = zzq
+                quant[seg[p] & 15] = q
+                p += 65
+        elif marker == 0xC4:
+            p = 0
+            while p < len(seg):
+                tc, th = seg[p] >> 4, seg[p] & 15
+                bits = np.zeros(17, np.int32)
+                bits[1:] = np.frombuffer(seg[p + 1:p + 17], np.uint8)
+                n = int(bits.sum())
+                vals = np.frombuffer(seg[p + 17:p + 17 + n], np.uint8)
+                dht[(tc, th)] = (bits, vals.astype(np.int32))
+                p += 17 + n
+        elif marker == 0xC0:
+            height = (seg[1] << 8) | seg[2]
+            width = (seg[3] << 8) | seg[4]
+            comps = [(seg[6 + 3 * c], seg[7 + 3 * c] >> 4,
+                      seg[7 + 3 * c] & 15, seg[8 + 3 * c])
+                     for c in range(seg[5])]
+        elif marker in (0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7):
+            return None
+        elif marker == 0xDD:
+            if (seg[0] << 8) | seg[1]:
+                return None  # restart streams: the segment path is better
+        elif marker == 0xDA:
+            if seg[0] != 1:
+                return None  # interleaved scan
+            cid = seg[1]
+            tdc, tac = seg[2] >> 4, seg[2] & 15
+            ent_start = pos + seg_len
+            ent_end = _entropy_end(data, ent_start)
+            try:
+                scans.append(dict(cid=cid, dc_spec=dht[(0, tdc)],
+                                  ac_spec=dht[(1, tac)],
+                                  entropy=data[ent_start:ent_end]))
+            except KeyError:
+                return None
+            pos = ent_end
+            continue
+        pos += seg_len
+    if not scans or not width or not comps:
+        return None
+    if {s["cid"] for s in scans} != {c[0] for c in comps} \
+            or len(scans) != len(comps):
+        return None
+    return dict(width=width, height=height, comps=comps, quant=quant,
+                scans=scans)
 
 
 def split_segments(entropy: bytes):
@@ -236,16 +335,12 @@ def lane_tables(tables_per_seg):
             hvp.astype(np.uint32).view(np.int32).copy())
 
 
-# -- G: decode_segments ------------------------------------------------------
+# -- G: decode_segments, H: scan_positions ----------------------------------
 
 
-def _check_mode(sampling: str, entry, phase, phased: bool) -> None:
+def _check_mode(sampling: str) -> None:
     if sampling not in _PATTERN:
         raise ValueError(f"unknown sampling {sampling!r}")
-    if entry is not None or phase is not None or phased:
-        raise NotImplementedError(
-            "decode_segments: per-lane entry bits and MCU phases (the "
-            "speculative decode) are not ported yet; restart segments only")
 
 
 def _extend(v: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
@@ -253,6 +348,99 @@ def _extend(v: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
     half = torch.ones_like(size) << (size - 1).clamp(min=0)
     return torch.where((size > 0) & (v < half),
                        v - ((torch.ones_like(size) << size) - 1), v)
+
+
+class _Lanes:
+    """The plain twins' view of the kernels' inputs: every lane's bits
+    and tables, read in lockstep over the lane axis."""
+
+    def __init__(self, streams, maxc, delt, hvp, max_words: int,
+                 sampling: str):
+        Sp, dev = streams.shape[0], streams.device
+        self.idx = torch.arange(Sp, device=dev)
+        self.max_words = max_words
+        # two zero words past each row: a peek there reads zeros
+        self.words = torch.cat(
+            [streams[:, :max_words].to(torch.int64) & 0xFFFFFFFF,
+             torch.zeros((Sp, 2), dtype=torch.int64, device=dev)], dim=1)
+        # lane-major [Sp, 4 tables, ...]
+        self.bound = maxc.to(torch.int64).reshape(4, 16, Sp).permute(
+            2, 0, 1).contiguous()
+        self.delta = delt.to(torch.int64).reshape(4, 16, Sp).permute(
+            2, 0, 1).contiguous()
+        self.hv = ((hvp.to(torch.int64)[..., None]
+                    >> (8 * torch.arange(4, device=dev))) & 0xFF
+                   ).reshape(Sp, 4, 256)
+        # (dc table row, ac table row, component) by MCU position
+        self.pattern = torch.tensor(_PATTERN[sampling], dtype=torch.int64,
+                                    device=dev)
+        self.period = len(_PATTERN[sampling])
+
+    def peek32(self, bp):
+        """The 32 bits at each lane's bit position ``bp``."""
+        w = (bp >> 5).clamp(max=self.max_words)[:, None]
+        w01 = self.words.gather(1, torch.cat([w, w + 1], dim=1))
+        s = bp & 31
+        return ((w01[:, 0] << s) | (w01[:, 1] >> (32 - s))) & 0xFFFFFFFF
+
+    def tables(self, t):
+        """Each lane's table row ``t`` [Sp]: (bounds [Sp, 16], deltas
+        [Sp, 16], HUFFVAL [Sp, 256])."""
+        def row(a):
+            return a.gather(1, t[:, None, None].expand(-1, 1, a.shape[2]))[:, 0]
+        return row(self.bound), row(self.delta), row(self.hv)
+
+    @staticmethod
+    def symbol(peek, tables):
+        """(symbol, code length; 17 = no match) per lane, each lane
+        against its own ``tables``."""
+        bound, delta, hv = tables
+        p = peek >> 16
+        ln = (p[:, None] >= bound).sum(1) + 1
+        li = ln.clamp(max=16)
+        v = (p >> (16 - li)) + delta.gather(1, (li - 1)[:, None])[:, 0]
+        return hv.gather(1, v.clamp(0, 255)[:, None])[:, 0], ln
+
+    @staticmethod
+    def bits_after(peek, ln, size):
+        """The ``size`` bits after the code, as a signed amplitude."""
+        v = (peek << ln.clamp(max=16)) & 0xFFFFFFFF
+        return _extend(torch.where(size > 0, v >> (32 - size), 0), size)
+
+    def walk_ac(self, bp, done, act, out=None, b=0):
+        """Every lane's AC symbols of one block from ``bp`` (table row
+        ``act``), lanes in ``done`` idle: -> (bit position, bad: a code
+        matched nothing).  Writes the coefficients into ``out[:, b]``
+        when given."""
+        act = self.tables(act)
+        slot = torch.ones_like(bp)
+        bad = torch.zeros_like(done)
+        while not bool(done.all()):
+            peek = self.peek32(bp)
+            sym, ln = self.symbol(peek, act)
+            run, size = sym >> 4, sym & 15
+            nomatch = ln >= 17
+            bad = bad | (~done & nomatch)
+            live = ~done & ~nomatch
+            eob = sym == 0
+            zrl = sym == 0xF0
+            bp = bp + torch.where(live, ln + size, 0)
+            pos = slot + run
+            if out is not None:
+                wr = live & ~eob & ~zrl & (size > 0) & (pos <= 63)
+                coef = self.bits_after(peek, ln, size)
+                out[self.idx[wr], b, pos[wr]] = coef[wr].to(torch.int32)
+            slot = torch.where(live, torch.where(zrl, slot + 16, pos + 1),
+                               slot)
+            done = done | ~live | eob | (slot > 63)
+        return bp, bad
+
+
+def _lane_row(t, Sp: int, device) -> torch.Tensor:
+    """A [1, Sp] per-lane input (None: zeros) as an int64 [Sp] row."""
+    if t is None:
+        return torch.zeros(Sp, dtype=torch.int64, device=device)
+    return t.reshape(-1).to(torch.int64)
 
 
 def decode_segments_plain(streams: torch.Tensor, maxc: torch.Tensor,
@@ -263,73 +451,47 @@ def decode_segments_plain(streams: torch.Tensor, maxc: torch.Tensor,
     """Plain twin of ``decode_segments``, on any device: every lane
     decodes in lockstep, one symbol step at a time over the lane axis,
     each lane masked by its own state."""
-    _check_mode(sampling, entry, phase, phased)
+    _check_mode(sampling)
     Sp, dev = streams.shape[0], streams.device
-    lanes = torch.arange(Sp, device=dev)
-    # two zero words past each row: a peek there reads zeros
-    words = torch.cat([streams[:, :max_words].to(torch.int64) & 0xFFFFFFFF,
-                       torch.zeros((Sp, 2), dtype=torch.int64, device=dev)],
-                      dim=1)
-    bound = maxc.to(torch.int64).reshape(4, 16, Sp)
-    delta = delt.to(torch.int64).reshape(4, 16, Sp)
-    hv = ((hvp.to(torch.int64)[..., None] >> (8 * torch.arange(4, device=dev)))
-          & 0xFF).reshape(Sp, 4, 256)
+    lanes = _Lanes(streams, maxc, delt, hvp, max_words, sampling)
     nblk = nblk_lane.reshape(-1).to(torch.int64)
-
-    def peek32(bp):
-        w = (bp >> 5).clamp(max=max_words)
-        s = bp & 31
-        w0 = words[lanes, w]
-        w1 = words[lanes, w + 1]
-        return ((w0 << s) | (w1 >> (32 - s))) & 0xFFFFFFFF
-
-    def symbol(peek, t):
-        """(symbol, code length; 17 = no match) per lane, table row t."""
-        p = peek >> 16
-        ln = (p[None] >= bound[t]).sum(0) + 1
-        li = ln.clamp(max=16)
-        v = (p >> (16 - li)) + delta[t].gather(0, (li - 1)[None])[0]
-        return hv[lanes, t, v.clamp(0, 255)], ln
-
-    def bits_after(peek, ln, size):
-        """The ``size`` bits after the code, as a signed amplitude."""
-        v = (peek << ln.clamp(max=16)) & 0xFFFFFFFF
-        return _extend(torch.where(size > 0, v >> (32 - size), 0), size)
-
+    bp = _lane_row(entry, Sp, dev)
+    first = _lane_row(phase if phased else None, Sp, dev)
     out = torch.zeros((Sp, nblk_seg, 64), dtype=torch.int32, device=dev)
     pred = torch.zeros((3, Sp), dtype=torch.int64, device=dev)
-    bp = torch.zeros(Sp, dtype=torch.int64, device=dev)
-    pattern = _PATTERN[sampling]
     for b in range(nblk_seg):
         live = b < nblk
         if not bool(live.any()):
             break
-        dct, act, comp = pattern[b % len(pattern)]
-        peek = peek32(bp)
-        sym, ln = symbol(peek, dct)
+        dct, act, comp = lanes.pattern[(first + b) % lanes.period].T
+        peek = lanes.peek32(bp)
+        sym, ln = lanes.symbol(peek, lanes.tables(dct))
         ok = live & (ln < 17)
         size = sym & 15
-        pred[comp] += torch.where(ok, bits_after(peek, ln, size), 0)
-        out[:, b, 0] = torch.where(ok, pred[comp], 0).to(torch.int32)
-        bp = bp + torch.where(ok, ln + size, 0)
-        slot = torch.ones_like(bp)
-        done = ~ok
-        while not bool(done.all()):
-            peek = peek32(bp)
-            sym, ln = symbol(peek, act)
-            run, size = sym >> 4, sym & 15
-            live = ~done & (ln < 17)
-            eob = sym == 0
-            zrl = sym == 0xF0
-            bp = bp + torch.where(live, ln + size, 0)
-            pos = slot + run
-            wr = live & ~eob & ~zrl & (size > 0) & (pos <= 63)
-            coef = bits_after(peek, ln, size)
-            out[lanes[wr], b, pos[wr]] = coef[wr].to(torch.int32)
-            slot = torch.where(live, torch.where(zrl, slot + 16, pos + 1),
-                               slot)
-            done = done | ~live | eob | (slot > 63)
+        dc = pred.gather(0, comp[None])[0] + torch.where(
+            ok, lanes.bits_after(peek, ln, size), 0)
+        pred.scatter_(0, comp[None], dc[None])
+        out[:, b, 0] = torch.where(ok, dc, 0).to(torch.int32)
+        bp, _ = lanes.walk_ac(bp + torch.where(ok, ln + size, 0), ~ok, act,
+                              out, b)
     return out
+
+
+def _check_lanes(streams, maxc, delt, hvp, max_words: int, **rows) -> int:
+    """The wrappers' checks of the lane inputs; returns the lane count."""
+    Sp = streams.shape[0]
+    check_tensor("streams", streams, torch.int32, (Sp, max_words))
+    check_tensor("maxc", maxc, torch.int32, (64, Sp))
+    check_tensor("delt", delt, torch.int32, (64, Sp))
+    check_tensor("hvp", hvp, torch.int32, (Sp, 256))
+    for name, t in rows.items():
+        if t is not None:
+            check_tensor(name, t, torch.int32, (1, Sp))
+    return Sp
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def decode_segments(streams: torch.Tensor, maxc: torch.Tensor,
@@ -337,38 +499,118 @@ def decode_segments(streams: torch.Tensor, maxc: torch.Tensor,
                     nblk_lane: torch.Tensor, sampling: str, nblk_seg: int,
                     max_words: int, entry=None, phase=None,
                     phased: bool = False) -> torch.Tensor:
-    """[Sp, max_words] segment streams -> zz [Sp, nblk_seg, 64] int32.
+    """[Sp, max_words] lane streams -> zz [Sp, nblk_seg, 64] int32.
 
     ``jpeg_tpu.kernels.huffdec.decode_segments``' arguments: ``streams``
-    int32 big-endian words (one segment per row, zero padded; rows past
-    the segments are lanes with no blocks), ``maxc``/``delt`` [64, Sp] and
+    int32 big-endian words (one lane per row, zero padded; rows past the
+    lanes are lanes with no blocks), ``maxc``/``delt`` [64, Sp] and
     ``hvp`` [Sp, 256] int32 per-lane tables (``lane_tables``),
     ``nblk_lane`` [1, Sp] int32 each lane's real block count (blocks past
-    it are zeros and consume no bits), ``nblk_seg`` the blocks per
-    segment.  Block ``b`` of a lane uses the tables and DC predictor of
-    position ``b % period`` of ``sampling``'s MCU; the DC terms are
-    cumulative from 0 in each lane, the slots in zig-zag order.  A code
-    that matches no table entry ends its block without consuming bits;
-    bits past a row read as zeros.  ``jpeg_tpu``'s output is this with
-    its blocks padded to whole grid steps.  ``entry``, ``phase`` and
-    ``phased`` (the speculative decode) raise ``NotImplementedError``.
+    it are zeros and consume no bits), ``nblk_seg`` the blocks per lane.
+    Block ``b`` of a lane uses the tables and DC predictor of position
+    ``b % period`` of ``sampling``'s MCU; the DC terms are cumulative from
+    0 in each lane, the slots in zig-zag order.  A code that matches no
+    table entry ends its block without consuming bits; bits past a row
+    read as zeros.  The speculative mode: ``entry`` [1, Sp] int32 (>= 0)
+    sets each lane's first bit in its row (None: bit 0), and with
+    ``phased=True`` block ``b`` takes position ``(phase + b) % period``
+    (``phase`` [1, Sp] int32 >= 0, None: zeros).  ``jpeg_tpu``'s output
+    is this with its blocks padded to whole grid steps; its ``peel_luma``
+    (TPU scheduling only) has no counterpart.
     """
-    _check_mode(sampling, entry, phase, phased)
-    if on_cpu(streams, maxc, delt, hvp, nblk_lane):
+    _check_mode(sampling)
+    if on_cpu(streams, maxc, delt, hvp, nblk_lane,
+              *(t for t in (entry, phase) if t is not None)):
         return decode_segments_plain(streams, maxc, delt, hvp, nblk_lane,
-                                     sampling, nblk_seg, max_words)
-    Sp = streams.shape[0]
-    check_tensor("streams", streams, torch.int32, (Sp, max_words))
-    check_tensor("maxc", maxc, torch.int32, (64, Sp))
-    check_tensor("delt", delt, torch.int32, (64, Sp))
-    check_tensor("hvp", hvp, torch.int32, (Sp, 256))
-    check_tensor("nblk_lane", nblk_lane, torch.int32, (1, Sp))
+                                     sampling, nblk_seg, max_words, entry,
+                                     phase, phased)
+    Sp = _check_lanes(streams, maxc, delt, hvp, max_words,
+                      nblk_lane=nblk_lane, entry=entry, phase=phase)
     zz = torch.empty((Sp, nblk_seg, 64), dtype=torch.int32,
                      device=streams.device)
     pattern = _PATTERN[sampling]
     y_per_mcu = sum(c == 0 for _, _, c in pattern)
     launch("decode_segments", streams.device, streams.data_ptr(),
            maxc.data_ptr(), delt.data_ptr(), hvp.data_ptr(),
-           nblk_lane.data_ptr(), zz.data_ptr(), Sp, max_words, nblk_seg,
-           len(pattern), y_per_mcu)
+           nblk_lane.data_ptr(), _ptr(entry),
+           _ptr(phase) if phased else None, zz.data_ptr(), Sp, max_words,
+           nblk_seg, len(pattern), y_per_mcu)
     return zz
+
+
+def _scan_steps(cap_blocks: int) -> int:
+    """Block steps of the positions pass: ``jpeg_tpu``'s grid runs
+    ``cap_blocks`` rounded up to whole steps of 8 blocks."""
+    return -(-cap_blocks // 8) * 8
+
+
+def scan_positions_plain(streams: torch.Tensor, maxc: torch.Tensor,
+                         delt: torch.Tensor, hvp: torch.Tensor,
+                         entry: torch.Tensor, limit: torch.Tensor,
+                         cap_blocks: int, max_words: int,
+                         sampling: str = "gray", phase=None):
+    """Plain twin of ``scan_positions``, on any device: every lane walks
+    its blocks in lockstep, one block step at a time."""
+    _check_mode(sampling)
+    Sp, dev = streams.shape[0], streams.device
+    lanes = _Lanes(streams, maxc, delt, hvp, max_words, sampling)
+    bp = _lane_row(entry, Sp, dev)
+    lim = _lane_row(limit, Sp, dev)
+    # a period-1 pattern ("gray") always takes table rows 0 and 1
+    first = _lane_row(phase if lanes.period > 1 else None, Sp, dev)
+    counts = torch.zeros(Sp, dtype=torch.int64, device=dev)
+    bad = torch.zeros(Sp, dtype=torch.bool, device=dev)
+    for step in range(_scan_steps(cap_blocks)):
+        live = (bp < lim) & ~bad
+        if not bool(live.any()):
+            break
+        dct, act, _ = lanes.pattern[(first + step) % lanes.period].T
+        sym, ln = lanes.symbol(lanes.peek32(bp), lanes.tables(dct))
+        ok = live & (ln < 17)
+        end, bad_ac = lanes.walk_ac(bp + torch.where(ok, ln + (sym & 15), 0),
+                                    ~ok, act)
+        whole = ok & ~bad_ac
+        bp = torch.where(whole, end, bp)
+        counts += whole
+        bad |= (live & ~ok) | bad_ac
+    return (bp.to(torch.int32), counts.to(torch.int32),
+            bad.to(torch.int32))
+
+
+def scan_positions(streams: torch.Tensor, maxc: torch.Tensor,
+                   delt: torch.Tensor, hvp: torch.Tensor,
+                   entry: torch.Tensor, limit: torch.Tensor,
+                   cap_blocks: int, max_words: int, sampling: str = "gray",
+                   phase=None):
+    """Speculative positions pass -> (exits, counts, bad), each [Sp] int32.
+
+    ``jpeg_tpu.kernels.huffdec.scan_positions``' arguments: the lane
+    inputs of ``decode_segments``, ``entry`` and ``limit`` [1, Sp] int32
+    bit offsets in each lane's row, ``phase`` [1, Sp] int32 (>= 0; None:
+    zeros) each lane's MCU position of its first block (interleaved
+    samplings; a period-1 ``sampling`` ignores it).  Each lane walks
+    blocks from ``entry``, for at most ``cap_blocks`` rounded up to a
+    multiple of 8 steps, stopping at the first block that starts at or
+    past ``limit``.  A block whose DC or AC code matches nothing does not
+    count, leaves the exit at its start and marks the lane bad, which
+    stops it.  Nothing is written but the exit bit, the blocks walked
+    and the bad flag; bits past a row read as zeros.  A lane still short
+    of its limit after the cap has ``counts >= cap_blocks`` (the caller
+    retries with a larger cap).
+    """
+    _check_mode(sampling)
+    if on_cpu(streams, maxc, delt, hvp, entry, limit,
+              *(() if phase is None else (phase,))):
+        return scan_positions_plain(streams, maxc, delt, hvp, entry, limit,
+                                    cap_blocks, max_words, sampling, phase)
+    Sp = _check_lanes(streams, maxc, delt, hvp, max_words, entry=entry,
+                      limit=limit, phase=phase)
+    outs = torch.empty((3, Sp), dtype=torch.int32, device=streams.device)
+    pattern = _PATTERN[sampling]
+    launch("scan_positions", streams.device, streams.data_ptr(),
+           maxc.data_ptr(), delt.data_ptr(), hvp.data_ptr(),
+           entry.data_ptr(), limit.data_ptr(),
+           _ptr(phase) if len(pattern) > 1 else None, outs.data_ptr(), Sp,
+           max_words, _scan_steps(cap_blocks), len(pattern),
+           sum(c == 0 for _, _, c in pattern))
+    return outs[0], outs[1], outs[2]

@@ -1,19 +1,22 @@
 """JPEG decode on the card: ``decode_jpeg`` and ``decode_jpeg_batch``.
 
-The port of ``jpeg_tpu.pipelines.decode``.  A stream's format alone picks
-its route, before anything is launched:
+The port of ``jpeg_tpu.pipelines.decode``.  A stream's format picks its
+route:
 
 * a baseline single-scan stream with restart markers, interleaved 4:2:0,
   4:2:2 or 4:4:4 (Cb and Cr sharing tables) or gray
   (``_parse_device_eligible``): its segments are un-stuffed and packed on
   the host, and kernel G (``kernels.huffdec.decode_segments``) decodes
   every segment, one per lane, of any count;
-* any other stream (no restart markers, the 3-scan layout, progressive,
-  other samplings, three quantizers): the host entropy decode
+* a baseline stream without restart markers: gray, the 3-scan layout
+  (the engine's default output) and interleaved 4:2:0, 4:2:2 or 4:4:4
+  with shared chroma tables (``pipelines.speculative``): the speculative
+  decode on kernels H (positions) and G (payload);
+* any other stream (progressive, other samplings, three quantizers), or
+  one whose speculation finds no fixpoint (a fact about its bits, such
+  as a corrupt stream): the host entropy decode
   (``golden.decoder.parse_coefficients``, the native ``decode_scan``).
-  ``jpeg_tpu`` tries its speculative device decode first; the port does
-  not have it yet, so under ``entropy_engine="auto"`` every such stream
-  warns, and under ``"device"`` it raises.
+  Under ``entropy_engine="auto"`` it warns, under ``"device"`` it raises.
 
 Dequantize, IDCT (one ``[N, 64] @ [64, 64]`` f32 matmul on the flat
 basis, no TF32: ``ops.dct.set_exact_matmul``), 2x chroma upsample and the
@@ -45,8 +48,6 @@ _HOST_FALLBACK = ("device entropy decode unavailable for this stream (not "
                   "an eligible restart stream and the speculative path was "
                   "ineligible or did not converge); falling back to the "
                   "host entropy decoder")
-_NO_SPECULATIVE = ("; the speculative device decode is not ported yet "
-                   "(ROADMAP queue 1 item 9)")
 
 
 @functools.lru_cache(maxsize=None)
@@ -143,6 +144,33 @@ def reconstruct_gray_batch(y_zz, luma_q, height: int,
 
 def reconstruct_gray(y_zz, luma_q, height: int, width: int) -> torch.Tensor:
     return reconstruct_gray_batch(y_zz[None], luma_q, height, width)[0]
+
+
+def reconstruct_items(items) -> list[torch.Tensor]:
+    """Decoded coefficients of several images -> their uint8 images, in
+    order; images of one sampling and padded size reconstruct in one
+    batched call.  Each item: (samp, y, cb, cr, luma q, chroma q,
+    (padded height, width), (height, width)), planes [nblk, 64] on one
+    device (cb, cr and chroma q None for "gray")."""
+    groups: dict = {}
+    for k, item in enumerate(items):
+        groups.setdefault((item[0], item[6]), []).append(k)
+    out: list = [None] * len(items)
+    for (samp, (ph, pw)), ks in groups.items():
+        ys = torch.stack([items[k][1] for k in ks])
+        qls = torch.from_numpy(np.stack([items[k][4] for k in ks]))
+        if samp == "gray":
+            imgs = reconstruct_gray_batch(ys, qls, ph, pw)
+        else:
+            cbs = torch.stack([items[k][2] for k in ks])
+            crs = torch.stack([items[k][3] for k in ks])
+            qcs = torch.from_numpy(np.stack([items[k][5] for k in ks]))
+            imgs = reconstruct_batch(ys, cbs, crs, qls, qcs, ph, pw,
+                                     samp=samp)
+        for k, img in zip(ks, imgs):
+            h, w = items[k][7]
+            out[k] = img[:h, :w]
+    return out
 
 
 def _parse_device_eligible(data: bytes):
@@ -340,16 +368,19 @@ def decode_jpeg(data: bytes, entropy_engine: str = "auto",
     [H, W] gray) on ``device``.
 
     ``entropy_engine``: "auto" decodes an eligible restart stream (see
-    ``_parse_device_eligible``) in kernel G and any other stream on the
-    host, with a warning; "host" always decodes on the host; "device"
-    raises ``ValueError`` for a stream kernel G cannot take.
+    ``_parse_device_eligible``) in kernel G, a stream without restarts
+    that the speculative decode takes (``pipelines.speculative``) in
+    kernels H and G, and any other stream on the host, with a warning;
+    "host" always decodes on the host; "device" raises ``ValueError``
+    where the card's routes cannot take the stream.
     """
     check_entropy_engine(entropy_engine)
     dev = _device(device)
-    # The route depends on the stream's format alone.  jpeg_tpu also sends
-    # every stream to the host off a TPU; under "auto" a restart stream of
-    # under 48 segments (_MIN_AUTO_SEGMENTS, calibrated on its lanes), and
-    # under "device" it first tries one of under 320 segments
+    # The route depends on the stream's format, and the speculative one on
+    # whether its fixpoint converges.  jpeg_tpu also sends every stream to
+    # the host off a TPU; under "auto" a restart stream of under 48
+    # segments (_MIN_AUTO_SEGMENTS, calibrated on its lanes), and under
+    # "device" it first tries one of under 320 segments
     # (_SPEC_RST_MAX_SEGS) on its speculative path.  The port has none of
     # these: every eligible restart stream takes kernel G.
     if entropy_engine != "host":
@@ -362,6 +393,10 @@ def decode_jpeg(data: bytes, entropy_engine: str = "auto",
             else:
                 out = reconstruct(y, cb, cr, ql, qc, ph, pw, samp=samp)
             return out[:height, :width]
+        from .speculative import speculative_decode
+        out = speculative_decode(data, device=dev)
+        if out is not None:
+            return out
         if entropy_engine == "device":
             raise ValueError("stream not eligible for device entropy "
                              "decode (needs a baseline interleaved "
@@ -369,7 +404,7 @@ def decode_jpeg(data: bytes, entropy_engine: str = "auto",
                              "restart markers, or a non-interleaved "
                              "stream large enough for the speculative "
                              "path)")
-        warnings.warn(_HOST_FALLBACK + _NO_SPECULATIVE, stacklevel=2)
+        warnings.warn(_HOST_FALLBACK, stacklevel=2)
     return _host_decode(data, dev)
 
 
@@ -380,12 +415,14 @@ def decode_jpeg_batch(datas, entropy_engine: str = "auto",
 
     The restart segments of every eligible stream of one sampling decode
     in one kernel G launch (each lane carries its own tables and block
-    count), and images of one geometry reconstruct in one batched call.
-    Other streams decode as ``decode_jpeg`` does (under "auto": on the
-    host, with a warning naming the stream; under "device": ``ValueError``).
-    Returns a list of [H, W, 3] (or [H, W] gray) uint8 tensors on
-    ``device`` in input order.  ``mesh`` (sharding the lanes over
-    devices) is not ported yet and raises ``NotImplementedError``.
+    count); the streams without restarts that the speculative decode
+    takes share its launches, one set per sampling; images of one
+    geometry reconstruct in one batched call.  A stream neither route
+    takes decodes on the host (under "auto": with a warning naming the
+    stream; under "device": ``ValueError``).  Returns a list of
+    [H, W, 3] (or [H, W] gray) uint8 tensors on ``device`` in input
+    order.  ``mesh`` (sharding the lanes over devices) is not ported yet
+    and raises ``NotImplementedError``.
     """
     check_entropy_engine(entropy_engine)
     if mesh is not None:
@@ -396,50 +433,47 @@ def decode_jpeg_batch(datas, entropy_engine: str = "auto",
     datas = list(datas)
     results: list = [None] * len(datas)
     groups: dict = {}
-    host_idx = []
+    spec_idx = []
     for i, d in enumerate(datas):
         info = (_parse_device_eligible(d) if entropy_engine != "host"
                 else None)
         if info is None:
-            host_idx.append(i)
+            spec_idx.append(i)
         else:
             groups.setdefault(info["samp"], []).append((i, info))
-    for i in host_idx:
-        if entropy_engine == "device":
-            raise ValueError(f"stream {i} not eligible for device "
-                             "entropy decode")
-        if entropy_engine == "auto":
-            warnings.warn(f"stream {i}: speculative device decode "
-                          "ineligible or non-converged; falling back to "
-                          "the host entropy decoder" + _NO_SPECULATIVE,
-                          stacklevel=2)
-        results[i] = _host_decode(datas[i], dev)
+    if spec_idx:
+        if entropy_engine != "host":  # non-restart streams: speculative
+            from .speculative import speculative_decode_batch
+            outs = speculative_decode_batch([datas[i] for i in spec_idx],
+                                            device=dev)
+        else:
+            outs = [None] * len(spec_idx)
+        for i, out in zip(spec_idx, outs):
+            if out is not None:
+                results[i] = out
+                continue
+            if entropy_engine == "device":
+                raise ValueError(f"stream {i} not eligible for device "
+                                 "entropy decode")
+            if entropy_engine == "auto":
+                warnings.warn(f"stream {i}: speculative device decode "
+                              "ineligible or non-converged; falling back "
+                              "to the host entropy decoder", stacklevel=2)
+            results[i] = _host_decode(datas[i], dev)
 
     for samp, items in groups.items():
         # jpeg_tpu first reroutes a group of under 320 segments
         # (_SPEC_RST_MAX_SEGS, its VPU-lane occupancy) through its
         # speculative path on a TPU; the port decodes every group here
         zz = _decode_lanes([inf for _, inf in items], dev)
-        geo: dict = {}
+        planes = []
         off = 0
         for i, inf in items:
             S = len(inf["segs"])
             y, cb, cr = _planes_of(zz[off:off + S], inf)
             off += S
-            geo.setdefault(inf["dims"], []).append((i, inf, y, cb, cr))
-        for (ph, pw), entries in geo.items():
-            ys = torch.stack([e[2] for e in entries])
-            qls = torch.from_numpy(np.stack([e[1]["ql"] for e in entries]))
-            if samp == "gray":
-                imgs = reconstruct_gray_batch(ys, qls, ph, pw)
-            else:
-                cbs = torch.stack([e[3] for e in entries])
-                crs = torch.stack([e[4] for e in entries])
-                qcs = torch.from_numpy(
-                    np.stack([e[1]["qc"] for e in entries]))
-                imgs = reconstruct_batch(ys, cbs, crs, qls, qcs, ph, pw,
-                                         samp=samp)
-            for img, (i, inf, *_rest) in zip(imgs, entries):
-                h, w = inf["true_dims"]
-                results[i] = img[:h, :w]
+            planes.append((inf["samp"], y, cb, cr, inf["ql"], inf["qc"],
+                           inf["dims"], inf["true_dims"]))
+        for (i, _), img in zip(items, reconstruct_items(planes)):
+            results[i] = img
     return results

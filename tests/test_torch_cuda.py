@@ -300,3 +300,57 @@ def test_decode_kernel_equals_twin_native_and_cpu(dev, sampling):
             > 0.999
     one = decode_jpeg(datas[1], device=dev)
     assert one.device.type == "cuda" and one.shape == (h, w, 3)
+
+
+@pytest.mark.parametrize("kind", ["3scan", "420", "gray"])
+def test_speculative_kernels_equal_twins_native_and_cpu(dev, kind):
+    """Kernel H equals its twin at the round-1 guesses and at the fixpoint,
+    G's speculative mode at the fixpoint's payload; the card's speculative
+    coefficients equal the native decoder's, and decode_jpeg on the card
+    (through H and G) is within jpeg_tpu's bound of the CPU path."""
+    from jpeg_tpu_torch import decode_jpeg
+    from jpeg_tpu_torch.golden import decoder as gdec
+    from jpeg_tpu_torch.kernels import huffdec as hd
+    from jpeg_tpu_torch.pipelines import decode as dec
+    from jpeg_tpu_torch.pipelines import speculative as spec
+    h, w = 96, 128
+    imgs = synthetic_batch(np.random.default_rng(61), 1, h, w)
+    if kind == "3scan":
+        data = JpegEncoder(EncodeConfig(), device="cpu").encode(imgs[0])
+    elif kind == "420":
+        data = FastBatchEncoder(h, w, EncodeConfig(scan_layout="interleaved"),
+                                device="cpu").encode_batch(imgs)[0]
+    else:
+        data = encode_gray(imgs[0, ..., 0], device="cpu")
+    p = spec._parse_spec(data)
+    chains = [(hd.unstuff_segments(e)[0], q, n) for e, q, n in p["scan_list"]]
+    lanes = spec.prepare_lanes(chains, dev, 128, p["sampling"])
+    S, cap = lanes.streams.shape[0], spec.first_cap(lanes)
+    fx = spec.fixpoint(lanes)
+    assert fx is not None and S > len(chains)
+    for entries, phases in ((np.zeros(S, np.int64), lanes.prior), fx[:2]):
+        ep = spec._put(dev, entries, phases)
+        args = (lanes.streams, *lanes.tables, ep[0:1], lanes.limits, cap,
+                lanes.max_words, lanes.sampling, ep[1:2])
+        for a, b in zip(hd.scan_positions(*args),
+                        hd.scan_positions_plain(*args)):
+            assert torch.equal(a, b)
+    gargs, gkw = spec.payload_inputs(lanes, *fx)
+    assert torch.equal(hd.decode_segments(*gargs, **gkw),
+                       hd.decode_segments_plain(*gargs, **gkw))
+    got = spec._spec_scans(p["scan_list"], device=dev,
+                           target_lane_bytes=128, sampling=p["sampling"])
+    comps, coeffs, *_ = gdec.parse_coefficients(data)
+    if p["kind"] == "interleaved":
+        em = got[0].reshape(p["mx"] * p["my"], -1, 64)
+        got = dec._em_to_planes(em, p["sampling"], p["mx"], p["my"])
+    for plane, comp in zip(got, comps):
+        assert torch.equal(plane.cpu(),
+                           torch.from_numpy(coeffs[comp.comp_id]))
+    reset_launch_counts()
+    card = decode_jpeg(data, "device", device=dev)
+    counts = launch_counts()
+    assert counts["scan_positions"] >= 1 and counts["decode_segments"] == 1
+    cpu = decode_jpeg(data, "device", device="cpu")
+    diff = (card.cpu().to(torch.int32) - cpu.to(torch.int32)).abs()
+    assert int(diff.max()) <= 2 and float((diff <= 1).double().mean()) > 0.999

@@ -283,7 +283,7 @@ def test_decode_jpeg_matches_jax_host(name):
 def test_decode_jpeg_batch_matches_jax_host():
     """Mixed samplings, geometries and table modes, a foreign (PIL)
     restart stream with a short final segment, a progressive stream and a
-    non-restart 3-scan stream, in one batch."""
+    non-restart 3-scan stream (the speculative route), in one batch."""
     datas = [_restart_file("420", "fixed", 128, 96, rows=2, seed=21),
              _restart_file("420", "dynamic", 64, 64, rows=1, seed=22),
              _restart_file("422", "fixed", 64, 96, rows=2, seed=23),
@@ -295,7 +295,7 @@ def test_decode_jpeg_batch_matches_jax_host():
                        progressive=True),
              bytes(JaxJpegEncoder(JaxConfig()).encode(
                  synthetic_images(27, 1, 64, 64)[0]))]
-    host = {6, 7}
+    host = {6}  # progressive: no device route
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         got = decode_jpeg_batch(datas, device="cpu")
@@ -309,18 +309,28 @@ def test_decode_jpeg_batch_matches_jax_host():
 
 
 def test_device_engine_raises_on_non_restart_stream():
-    data = bytes(JaxJpegEncoder(JaxConfig()).encode(
-        synthetic_images(31, 1, 64, 64)[0]))  # 3-scan, no restarts
+    """A stream no device route takes (progressive) raises jpeg_tpu's
+    ValueError under "device" and warns under "auto"; a 3-scan stream
+    without restarts decodes on the speculative route, with no warning."""
+    prog = _pil_file(synthetic_images(31, 1, 64, 64)[0], quality=80,
+                     progressive=True)
     with pytest.raises(ValueError) as want:
-        jdec.decode_jpeg(data, entropy_engine="device", interpret=True)
+        jdec.decode_jpeg(prog, entropy_engine="device", interpret=True)
     with pytest.raises(ValueError) as got:
-        decode_jpeg(data, entropy_engine="device", device="cpu")
+        decode_jpeg(prog, entropy_engine="device", device="cpu")
     assert str(got.value) == str(want.value)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
+        decode_jpeg(prog, device="cpu")
+    assert len(caught) == 1 and \
+        str(caught[0].message) == dec._HOST_FALLBACK
+    data = bytes(JaxJpegEncoder(JaxConfig()).encode(
+        synthetic_images(31, 1, 64, 64)[0]))  # 3-scan, no restarts
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         out = decode_jpeg(data, device="cpu")
-        decode_jpeg(data, entropy_engine="host", device="cpu")
-    assert len(caught) == 1 and "not ported yet" in str(caught[0].message)
+        dev = decode_jpeg(data, entropy_engine="device", device="cpu")
+    assert torch.equal(out, dev)
     _check_against_jax(out, data, "3-scan 64x64")
 
 
@@ -333,10 +343,8 @@ def test_argument_errors():
     with pytest.raises(NotImplementedError, match="multi-device"):
         decode_jpeg_batch([data], mesh=object(), device="cpu")
     args = _t(*_k16_inputs(data, "420")[:5])
-    for kw in (dict(entry=args[4]), dict(phase=args[4]),
-               dict(phased=True)):
-        with pytest.raises(NotImplementedError, match="speculative"):
-            hd.decode_segments(*args, "420", 12, args[0].shape[1], **kw)
+    with pytest.raises(ValueError, match="unknown sampling '411'"):
+        hd.decode_segments(*args, "411", 12, args[0].shape[1])
 
 
 def test_eligible_four_segment_stream_takes_kernel_g(monkeypatch):

@@ -183,4 +183,5 @@ def test_cpu_wrappers_run_the_plain_twins_and_launch_nothing():
         "front_dct", "front_dct_px", "symbolize_bits",
         "symbolize_bits_explicit",
         "segment_offsets", "place", "symbolize_fields",
-        "symbolize_fields_explicit", "attach_pf", "decode_segments"}
+        "symbolize_fields_explicit", "attach_pf", "decode_segments",
+        "scan_positions"}

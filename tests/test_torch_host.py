@@ -454,3 +454,45 @@ def test_huffdec_host_parsers_match():
     for a, b in zip(hd.canonical_tables(bits, np.arange(6)),
                     jhd.canonical_tables(bits, np.arange(6))):
         np.testing.assert_array_equal(a, b)
+
+
+def test_speculative_parsers_match():
+    """The port's ``parse_noninterleaved_scans`` and
+    ``parse_scan_structure(require_restarts=False)`` equal jpeg_tpu's on
+    restart, 3-scan, progressive, DRI-less interleaved and gray streams."""
+    import io
+    from PIL import Image
+    from jpeg_tpu.kernels import huffdec as jhd
+    from jpeg_tpu_torch.kernels import huffdec as hd
+    datas = dict(_decode_streams())
+    img = synthetic_images(87, 1, 48, 64)[0]
+    for name, arr, kw in (("pil-420", img, dict(subsampling=2)),
+                          ("pil-gray", img[..., 2], {})):
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, "JPEG", quality=80, **kw)
+        datas[name] = buf.getvalue()
+
+    def same(a, b, label):
+        assert type(a) is type(b), label
+        if isinstance(a, dict):
+            assert a.keys() == b.keys(), label
+            for k in a:
+                same(a[k], b[k], (label, k))
+        elif isinstance(a, (list, tuple)):
+            assert len(a) == len(b), label
+            for x, y in zip(a, b):
+                same(x, y, label)
+        elif isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=str(label))
+        else:
+            assert a == b, label
+    found = {"scans": 0, "dri-less": 0}
+    for name, data in datas.items():
+        got = hd.parse_noninterleaved_scans(data)
+        same(got, jhd.parse_noninterleaved_scans(data), (name, "scans"))
+        found["scans"] += got is not None
+        got = hd.parse_scan_structure(data, require_restarts=False)
+        same(got, jhd.parse_scan_structure(data, require_restarts=False),
+             (name, "structure"))
+        found["dri-less"] += got is not None and not got["restart_interval"]
+    assert found == {"scans": 2, "dri-less": 2}

@@ -22,6 +22,7 @@ def _run(code: str, env=None) -> str:
                                     "jpeg_tpu_torch.pipelines.fast",
                                     "jpeg_tpu_torch.pipelines.encode",
                                     "jpeg_tpu_torch.pipelines.decode",
+                                    "jpeg_tpu_torch.pipelines.speculative",
                                     "jpeg_tpu_torch.kernels.huffdec",
                                     "jpeg_tpu_torch.golden.decoder",
                                     "jpeg_tpu_torch.utils.guards",
