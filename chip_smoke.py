@@ -20,7 +20,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    (both orders), its pixel-block mode (rows and the transposed ``xt``),
    K7 (``dct_attach_pack_segments``: A's pixel mode, B, C, D) and K18a
    (``dct_index_xt``: A's pixel mode, E) at the shapes of a 4x1920x1280
-   batch of each sampling; integer outputs must be exactly equal;
+   batch of each sampling; then C again at the main paths' shapes and
+   its edges (nblk of 1 and its tile's 4096 +- 1, one segment of 57600
+   or 38400 blocks, 640 segments), 200 launches back to back each;
+   integer outputs must be exactly equal;
 3. the main paths, each with the launch counts reset just before its run
    and read just after, every kernel of the path launched:
    a. ``FastBatchEncoder.encode_batch`` on 16x640x640, 4x1920x1280 and
@@ -61,7 +64,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
       "device", then "auto" with warnings as errors): first kernel H
       (``scan_positions``) against its twin on every lane of a 3-scan
       1920x1280 file at the round-1 guesses and at the fixpoint, clean and
-      corrupted, and G's speculative mode against its twin on the
+      corrupted, on 512 random (entry, phase) pairs over the DRI-less
+      4:2:0 file's lanes, with a cap of 64, on lanes shorter than 32
+      blocks and on rows padded to each of H's shared-memory layouts
+      (four staged rows a CTA past 48 KB, two, one, and rows left in
+      global memory), and G's speculative mode against its twin on the
       fixpoint's payload of a DRI-less 4:2:0 1920x1088 file; the
       fixpoint's decision on two corrupted copies of a 3-scan 640x640
       file against the CPU path's; then ``decode_jpeg`` of the port's
@@ -97,7 +104,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    each case of 3f: its call ms, device time, H's µs per round x rounds,
    G's payload µs, idle share and the host entropy route on its files
    (the restart cases beside kernel G's route on the same files); H and
-   G's speculative mode alone, each beside its twin and bound.
+   G's speculative mode alone, each beside its twin and bound; C at the
+   main paths' three shapes in turns with its twin and ``torch.cumsum``,
+   with the host's cost of C's wrapper and of its parts; every kernel's
+   device µs per call (torch.profiler, three profiles) beside its event
+   ms.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 the JSON verdict.  Inputs are synthetic images (smooth gradients plus hard
@@ -770,6 +781,21 @@ def device_profile(fn, runs: int) -> tuple[dict[str, float], float]:
     return per_call, 1.0 - busy / wall_us
 
 
+def device_us(fn, runs: int, attempts: int = 3) -> tuple[float, list]:
+    """Device µs per call of ``fn`` by torch.profiler: the median of
+    ``attempts`` profiles, and every reading (printed beside it, so that
+    a profile that missed activity records shows)."""
+    readings = [sum(device_profile(fn, runs)[0].values())
+                for _ in range(attempts)]
+    return statistics.median(readings), readings
+
+
+def device_text(us: tuple[float, list]) -> str:
+    """``device_us``' result as printed."""
+    return (f"device {us[0]:.2f} µs per call (torch.profiler, median of "
+            + ", ".join(f"{r:.2f}" for r in us[1]) + ")")
+
+
 def scan_kernel_times(x: torch.Tensor, consts, lut: torch.Tensor,
                       card: str, runs: int) -> None:
     """The ports of K14 (F with one LUT: ``kernels.lut.attach``'s kernel)
@@ -1205,6 +1231,8 @@ def spec_kernel_phase(scan_file: bytes, il_file: bytes, dev):
     gfx = pspec.fixpoint(il)
     if gfx is None:
         raise AssertionError("DRI-less 4:2:0 file: no fixpoint")
+    h_err = max(h_err, scan_extra_checks(
+        lanes, fx, il, dev, np.random.default_rng(SPEC_RNG_OFFSET + 100)))
     gargs, gkw = pspec.payload_inputs(il, *gfx)
     got = khd.decode_segments(*gargs, **gkw)
     want = khd.decode_segments_plain(*gargs, **gkw)
@@ -1229,6 +1257,182 @@ def spec_kernel_phase(scan_file: bytes, il_file: bytes, dev):
                   f"DRI-less 4:2:0 {SPEC_INTERLEAVED[0][2]}x"
                   f"{SPEC_INTERLEAVED[0][1]} file"}
     return h_err, g_err, calls, bounds_, shapes
+
+
+# kernel C's shapes beyond the main paths': (label, S, nblk); its tile is
+# 4096 blocks, so nblk of tile - 1, tile and tile + 1, and the one-segment
+# scans of 4x1920x1280 (57600 blocks) and a 3-scan Y scan (38400)
+OFFSETS_MAIN = [("16x640x640", 16, 9600), ("4x1920x1280", 4, 57600),
+                ("3-scan 1920x1280 Y scan", 1, 38400)]
+OFFSETS_EDGES = [("nblk 1", 3, 1), ("tile - 1", 2, 4095), ("tile", 2, 4096),
+                 ("tile + 1", 2, 4097), ("S 1, 57600", 1, 57600),
+                 ("S 1, 38400", 1, 38400), ("S 640", 640, 240)]
+OFFSETS_REPEATS = 200  # back-to-back launches a shape: a fence or race fault
+
+
+def offsets_checks(dev, rng: np.random.Generator) -> int:
+    """Kernel C against its twin at the main paths' shapes and the edges,
+    on random counts up to 1728 bits a block, each launched
+    ``OFFSETS_REPEATS`` times back to back before one sync; every
+    launch's outputs must equal the twin's.  Returns the max |error|."""
+    err = 0
+    for label, S, nblk in OFFSETS_MAIN + OFFSETS_EDGES:
+        bits = torch.from_numpy(
+            rng.integers(0, 1729, (S, nblk)).astype(np.int32)).to(dev)
+        want = fused.segment_offsets_plain(bits)
+        runs = [fused.segment_offsets(bits) for _ in range(OFFSETS_REPEATS)]
+        torch.cuda.synchronize()
+        e = max(max_abs_err(got, want) for got in runs)
+        err = max(err, e)
+        print(f"kernel segment_offsets ({label}: [{S}, {nblk}], "
+              f"{OFFSETS_REPEATS} launches back to back): max_abs_err {e} "
+              f"(tolerance: exact)")
+        if e:
+            raise AssertionError(f"kernel segment_offsets disagrees with its "
+                                 f"plain twin at {label}: max_abs_err {e}")
+    return err
+
+
+def offsets_timings(dev, rng: np.random.Generator, card: str,
+                    runs: int) -> None:
+    """Kernel C at the main paths' three shapes: its event ms in turns with
+    its twin and ``torch.cumsum``, and its device µs by torch.profiler."""
+    for label, S, nblk in OFFSETS_MAIN:
+        bits = torch.from_numpy(
+            rng.integers(0, 1729, (S, nblk)).astype(np.int32)).to(dev)
+
+        def kernel():
+            return fused.segment_offsets(bits)
+
+        def plain():
+            return fused.segment_offsets_plain(bits)
+
+        def cumsum():
+            return torch.cumsum(bits, dim=-1)
+        p0, c0, k0, k1, c1, p1 = (cuda_ms(f, runs) for f in (
+            plain, cumsum, kernel, kernel, cumsum, plain))
+        print(f"timing kernel segment_offsets (C) at {label} [{S}, {nblk}] "
+              f"on [{card}]: {(k0 + k1) / 2:.4f} ms ({k0:.4f}, {k1:.4f}), "
+              f"torch.cumsum {(c0 + c1) / 2:.4f} ms ({c0:.4f}, {c1:.4f}), "
+              f"plain twin {(p0 + p1) / 2:.4f} ms ({p0:.4f}, {p1:.4f}); "
+              f"{device_text(device_us(kernel, runs))}")
+        if label == OFFSETS_MAIN[0][0]:
+            offsets_host_costs(bits, card)
+
+
+def host_us(fn, n: int = 2000, reps: int = 5) -> float:
+    """Host µs per call of ``fn``: the median over ``reps`` loops of ``n``
+    calls, each loop ended by one sync (the host's cost wherever the
+    device's work per call is the shorter)."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+    return statistics.median(times)
+
+
+def offsets_host_costs(bits: torch.Tensor, card: str) -> None:
+    """The host's cost of kernel C's wrapper beside ``torch.cumsum``'s on
+    the same input, and of the wrapper's parts: its check, its outputs
+    (one buffer and two views of it; for comparison, two allocations),
+    its workspace lookup and the launch itself."""
+    from jpeg_tpu_torch import kernels
+    S, nblk = bits.shape
+    dev = bits.device
+    offs, totals = fused.segment_offsets(bits)
+    work = fused._offsets_workspace(dev, fused._offsets_words(S, nblk))
+    one = torch.empty(S * nblk + S, dtype=torch.int32, device=dev)
+    parts = {
+        "the wrapper": lambda: fused.segment_offsets(bits),
+        "torch.cumsum": lambda: torch.cumsum(bits, dim=-1),
+        "check_tensor": lambda: kernels.check_tensor(
+            "bits", bits, torch.int32, (S, nblk)),
+        "its buffer (one new_empty)": lambda: bits.new_empty(S * nblk + S),
+        "its two as_strided views": lambda: (
+            one.as_strided((S, nblk), (nblk, 1)),
+            one.as_strided((S,), (1,), S * nblk)),
+        "two torch.empty instead": lambda: (
+            torch.empty((S, nblk), dtype=torch.int32, device=dev),
+            torch.empty(S, dtype=torch.int32, device=dev)),
+        "workspace lookup": lambda: fused._offsets_workspace(
+            dev, fused._offsets_words(S, nblk)),
+        "launch (ctypes and the CUDA launch)": lambda: kernels.launch(
+            "segment_offsets", dev, bits.data_ptr(), offs.data_ptr(),
+            totals.data_ptr(), work, S, nblk),
+    }
+    print(f"host µs per call at [{S}, {nblk}] on [{card}] (loops of 2000 "
+          f"calls, one sync each, median of 5): " + ", ".join(
+              f"{k} {host_us(f):.2f}" for k, f in parts.items()))
+
+
+# row sizes (words) that put kernel H in each of its shared-memory layouts
+# (csrc/huffdec.cu, jt_scan_positions: a 4 KB lookahead table and the
+# staged row a lane, at most four lanes and 200 KB a CTA)
+H_ROW_WORDS = [(8000, "four staged lanes a CTA, 141 KiB, past the 48 KiB "
+                       "default"),
+               (20000, "two staged lanes a CTA, 164 KiB"),
+               (40000, "one staged lane a CTA, 160 KiB"),
+               (60000, "rows left in global memory")]
+
+
+def scan_extra_checks(scan: "pspec.SpecLanes", scan_fx, il: "pspec.SpecLanes",
+                      dev, rng: np.random.Generator) -> int:
+    """Kernel H against its twin beyond phase 3f's lanes: 512 random (entry,
+    phase) pairs over the DRI-less 4:2:0 file's lanes (entries anywhere up
+    to 64 bits past the limit: inside codes, past the limit); a cap of 64
+    at the 3-scan fixpoint (every long lane stops at the cap); lanes
+    shorter than 32 blocks (the limit 40-200 bits past the fixpoint's
+    entry); the fixpoint with each row padded to ``H_ROW_WORDS``' sizes,
+    one for each of H's shared-memory layouts.  Returns the max |error|."""
+    n = 512
+    pick = torch.from_numpy(rng.integers(0, il.streams.shape[0], n)).to(dev)
+    lim = il.limits[:, pick].contiguous()
+    entries = torch.from_numpy(rng.integers(
+        0, il.limit_bits[pick.cpu().numpy()] + 64).astype(np.int32)).to(dev)
+    phases = torch.from_numpy(rng.integers(0, 12, n).astype(np.int32)).to(dev)
+    maxc, delt, hvp = il.tables
+    S = scan.streams.shape[0]
+    ep = pspec._put(dev, scan_fx[0], scan_fx[1])
+    short = pspec._put(dev, scan_fx[0] + rng.integers(40, 201, S))
+    cases = [
+        ("512 random (entry, phase) over the DRI-less 4:2:0 lanes",
+         (il.streams[pick].contiguous(), maxc[:, pick].contiguous(),
+          delt[:, pick].contiguous(), hvp[pick].contiguous(),
+          entries[None], lim, pspec.first_cap(il), il.max_words,
+          il.sampling, phases[None])),
+        ("cap 64 at the 3-scan fixpoint",
+         (scan.streams, *scan.tables, ep[0:1], scan.limits, 64,
+          scan.max_words, scan.sampling, ep[1:2])),
+        ("lanes shorter than 32 blocks",
+         (scan.streams, *scan.tables, ep[0:1], short, pspec.first_cap(scan),
+          scan.max_words, scan.sampling, ep[1:2])),
+    ]
+    for words, layout in H_ROW_WORDS:
+        cases.append((f"rows of {words} words: {layout}", (
+            torch.nn.functional.pad(scan.streams, (0, words - scan.max_words)),
+            *scan.tables, ep[0:1], scan.limits, pspec.first_cap(scan), words,
+            scan.sampling, ep[1:2])))
+    err = 0
+    for label, args in cases:
+        got = khd.scan_positions(*args)
+        want = khd.scan_positions_plain(*args)
+        e = max_abs_err(tuple(g.cpu() for g in got),
+                        tuple(w.cpu() for w in want))
+        err = max(err, e)
+        print(f"kernel scan_positions ({label}): 3 x {got[0].shape[0]} "
+              f"int32: max_abs_err {e} (tolerance: exact); lanes bad "
+              f"{int(got[2].sum())}, capped {int((got[1] >= args[6]).sum())}"
+              f", blocks {int(got[1].sum())}")
+        if e:
+            raise AssertionError(f"kernel scan_positions disagrees with its "
+                                 f"plain twin ({label}): max_abs_err {e}")
+    return err
 
 
 def spec_decisions(data: bytes, dev) -> list[str]:
@@ -1358,10 +1562,12 @@ def spec_timings(spec_runs, scases, spec_calls, spec_bounds, spec_shapes,
         kernel, twin = spec_calls[key]
         p0, k0, k1, p1 = (cuda_ms(twin, 1, 1, 0), cuda_ms(kernel, runs),
                           cuda_ms(kernel, runs), cuda_ms(twin, 1, 1, 0))
-        times[name] = ((k0 + k1) / 2, (p0 + p1) / 2, None)
+        dus = device_us(kernel, runs)
+        times[name] = ((k0 + k1) / 2, (p0 + p1) / 2, None, dus[0])
         bound[name] = spec_bounds[name]
         print(f"timing kernel {name} at {spec_shapes[name]} on [{card}]: "
-              f"{times[name][0]:.4f} ms ({k0:.4f}, {k1:.4f}), bound "
+              f"{times[name][0]:.4f} ms ({k0:.4f}, {k1:.4f}), "
+              f"{device_text(dus)}, bound "
               f"{bound[name][0]:.5f} ms (bytes); plain twin on the same "
               f"inputs {times[name][1]:.4f} ms ({p0:.4f}, {p1:.4f}); median "
               f"of {runs} (twin: one call each)")
@@ -1611,6 +1817,9 @@ def main() -> int:
                 raise AssertionError(f"kernel {name} disagrees with its "
                                      f"plain twin: max_abs_err {err}")
 
+    errs["segment_offsets"] = max(errs["segment_offsets"], offsets_checks(
+        dev, np.random.default_rng(args.seed + 7)))
+
     # -- phase 3: the main path, through encode_batch, per mode --------------
     batches = [synthetic_batch(rng, b, h, w) for b, h, w, _ in GEOMETRIES]
     encoders = {mode: [FastBatchEncoder(h, w, config(mode, r), device=dev)
@@ -1835,23 +2044,30 @@ def main() -> int:
                   per_call.items(), key=lambda kv: -kv[1])) +
               f"; total {sum(per_call.values()):.2f}; device idle share "
               f"{idle:.4f}")
+    offsets_timings(dev, np.random.default_rng(args.seed + 8), card,
+                    args.runs)
     x_big = torch.from_numpy(synthetic_batch(rng2, 1, 1280, 1920)).to(dev)
     scan_kernel_times(x_big.reshape(1, 1280, 1920 * 3), consts, enc._lut,
                       card, args.runs)
     times = {}
     for name, (kernel, plain) in calls.items():
-        # in turns (plain, kernel, kernel, plain), so drift hits both alike
-        p0, k0, k1, p1 = (cuda_ms(f, args.runs)
-                          for f in (plain, kernel, kernel, plain))
-        lib = cuda_ms(library[name], args.runs) if name in library else None
-        times[name] = ((k0 + k1) / 2, (p0 + p1) / 2, lib)
+        # in turns (plain, library call, kernel, kernel, library call,
+        # plain), so drift hits all alike
+        fns = [plain, *([library[name]] if name in library else []), kernel]
+        first = [cuda_ms(f, args.runs) for f in fns]
+        second = [cuda_ms(f, args.runs) for f in reversed(fns)][::-1]
+        p0, k0, k1, p1 = first[0], first[-1], second[-1], second[0]
+        lib = ((first[1] + second[1]) / 2 if name in library else None)
+        dus = device_us(kernel, args.runs)
+        times[name] = ((k0 + k1) / 2, (p0 + p1) / 2, lib, dus[0])
         at = at_of.get(name, f"{b4}x{h4}x{w4} f64" if name in
                        explicit_bounds(1, 1, 1, 1) else f"{B}x{H}x{W}")
         print(f"timing kernel {name} at {at} on [{card}]: "
               f"{times[name][0]:.4f} ms ({k0:.4f}, {k1:.4f}), plain twin "
               f"{times[name][1]:.4f} ms ({p0:.4f}, {p1:.4f})"
-              + (f", one PyTorch call {lib:.4f} ms" if lib is not None
-                 else ""))
+              + (f", one PyTorch call {lib:.4f} ms ({first[1]:.4f}, "
+                 f"{second[1]:.4f})" if lib is not None else "")
+              + f"; {device_text(dus)}, every device op of the call")
     p0, k0, k1, p1 = (cuda_ms(f, args.runs)
                       for f in (k13[1], k13[0], k13[0], k13[1]))
     bound = bounds(B, H, W, enc.n_segs, seg_words)
@@ -1891,7 +2107,9 @@ def main() -> int:
                       cuda_ms(g_full, args.runs), cuda_ms(g_twin, 1, 1, 0))
     host_route = host_ms(lambda: [golden.parse_coefficients(f)
                                   for f in dcases[0]["files"]], decode_n)
-    times["decode_segments"] = ((k0 + k1) / 2, (p0 + p1) / 2, None)
+    g_dus = device_us(g_full, args.runs)
+    times["decode_segments"] = ((k0 + k1) / 2, (p0 + p1) / 2, None,
+                                g_dus[0])
     g_infos = [pdec._parse_device_eligible(f) for f in dcases[0]["files"]]
     bound["decode_segments"] = (huff_bound(
         sum(len(seg) for info in g_infos for seg in info["segs"]),
@@ -1900,7 +2118,8 @@ def main() -> int:
     print(f"timing kernel decode_segments (G) at {dcases[0]['label']} "
           f"({g_streams.shape[0]} lanes x {g_seg} blocks, {g_mw} words) on "
           f"[{card}]: {times['decode_segments'][0]:.4f} ms ({k0:.4f}, "
-          f"{k1:.4f}), bound {bound['decode_segments'][0]:.5f} ms (bytes); "
+          f"{k1:.4f}), {device_text(g_dus)}, bound "
+          f"{bound['decode_segments'][0]:.5f} ms (bytes); "
           f"plain twin on the same inputs "
           f"{times['decode_segments'][1]:.4f} ms ({p0:.4f}, "
           f"{p1:.4f}); host entropy route on the same "
@@ -1917,6 +2136,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1], "launches": launches[name],
          "max_abs_err": errs[name], "ms": times[name][0],
+         "device_us": times[name][3],
          "plain_ms": times[name][1], "bound_ms": bound[name][0],
          "bound_by": bound[name][1], "library_ms": times[name][2]}
         for name in [*calls, "decode_segments",

@@ -9,14 +9,21 @@
   API of ``jpeg_tpu.pipelines.encode`` in both scan layouts ("3scan", the
   default, and "interleaved"), byte-identical to ``jpeg_tpu``'s.
 * ``decode_jpeg`` and ``decode_jpeg_batch``: ``jpeg_tpu.pipelines.decode``'s
-  decode API; restart streams decode in a hand-written CUDA Huffman
-  decoder, other streams on the host (the port's native library), and the
-  reconstruction runs in torch on the same device.
+  decode API (``pipelines/decode.py`` states the routes).  A baseline
+  stream with restart markers decodes in kernel G, one lane a segment; a
+  baseline stream without them (gray, the 3-scan layout, DRI-less
+  interleaved color) takes the speculative decode: kernel H's positions
+  fixpoint, then G's entry/phase mode, then a torch stitch on the card;
+  anything else, or a stream whose fixpoint does not converge, decodes on
+  the host (the port's native library), with a warning under
+  ``entropy_engine="auto"``.  The reconstruction runs in torch on the
+  same device.
 
 On a CUDA device every encode step from u8 pixels to packed words, and the
-Huffman decode of restart segments, runs in the hand-written kernels under
-``csrc/``; on the CPU the same steps run their plain PyTorch twins.  The
-entry points run on the card unless the caller passes ``device="cpu"``.
+Huffman decode of the card's routes, runs in the hand-written kernels
+under ``csrc/``; on the CPU the same steps run their plain PyTorch twins.
+The entry points run on the card unless the caller passes
+``device="cpu"``.
 
 The package imports neither ``jax`` nor anything of ``jpeg_tpu``: it keeps
 its own copies of the host code it needs (``core``, ``huffman``,

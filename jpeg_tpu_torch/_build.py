@@ -42,7 +42,7 @@ SIGNATURES = {
                                 "jt_symbolize_bits_explicit",
                                 [_VOID] * 7 + [_INT] * 2 + [_VOID]),
     "segment_offsets": ("segment_offsets", "jt_segment_offsets",
-                        [_VOID] * 3 + [_INT] * 2 + [_VOID]),
+                        [_VOID] * 4 + [_INT] * 2 + [_VOID]),
     "place": ("place", "jt_place", [_VOID] * 4 + [_INT] * 3 + [_VOID]),
     "symbolize_fields": ("symbolize_fields", "jt_symbolize_fields",
                          [_VOID] * 4 + [_INT] * 6 + [_VOID]),
@@ -134,10 +134,15 @@ def _build_all() -> None:
     build_seconds = time.perf_counter() - t0
 
 
-def entry(name: str):
-    """The C entry point of kernel ``name``, building all kernels once."""
+def library(source: str) -> ctypes.CDLL:
+    """The library of ``csrc/<source>.cu``, building all kernels once."""
     with _lock:
         if not _libs:
             _build_all()
+    return _libs[source]
+
+
+def entry(name: str):
+    """The C entry point of kernel ``name``, building all kernels once."""
     source, fn, _ = SIGNATURES[name]
-    return getattr(_libs[source], fn)
+    return getattr(library(source), fn)

@@ -1,5 +1,5 @@
 // Kernels G and H: baseline Huffman decode on the card, one lane per row of
-// bits, one thread per lane.
+// bits; G walks a lane with one thread, H with one warp.
 //
 // G, decode_segments -> zig-zag coefficients [S, nblk_seg, 64] int32.
 // Replaces jpeg_tpu/kernels/huffdec.py::decode_segments (the pallas_call of
@@ -36,14 +36,20 @@
 // What bounds them on an H100: bytes, as a roofline count: the streams in
 // plus the outputs over 3.35 TB/s (at 16x640x640 4:2:0 G's zz write alone
 // is 16 x 9600 blocks x 256 B = 39.3 MB, about 12 us; H writes 12 bytes a
-// lane).  This design is far from that: one thread walks each lane's bits
-// serially (a 64-bit bit buffer refilled from global memory, a linear
-// search over the 16 code lengths per symbol), so each launch takes the
-// latency of its longest lane's symbol chain, and the card holds only S
-// threads (640 at 16x640x640 r1, 8 at 2x1920x1088 r17; the speculative
-// split aims at about 640 lanes a launch).  G's output is zeroed by one
-// cudaMemsetAsync, then each lane writes its DC terms and its nonzero AC
-// terms.  One warp per CTA spreads the lanes over the SMs.
+// lane).  Both are far from that, since a Huffman walk is a chain of
+// dependent symbol decodes, bounded by latency.  G: one thread walks each
+// lane's bits serially (a 64-bit bit buffer refilled from global memory, a
+// linear search over the 16 code lengths per symbol), so each launch takes
+// the latency of its longest lane's symbol chain; its output is zeroed by
+// one cudaMemsetAsync, then each lane writes its DC terms and its nonzero
+// AC terms; one warp per CTA spreads the lanes over the SMs.  H keeps the
+// one-thread walk but shortens each step: a warp a lane stages the lane's
+// row in shared memory (rows too long for the budget stay in global
+// memory) and builds a 9-bit lookahead table per table row there, so a
+// code of at most 9 bits (DC codes and EOB, most of a block's symbols)
+// decodes with one shared load instead of the 16-step search, and a DC
+// code followed by an EOB within the prefix ends its block in one load;
+// then one thread of the warp walks the lane.  Four lanes a CTA.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,6 +57,9 @@ namespace {
 
 constexpr int kThreads = 32;
 
+// A lane's bits from bit `entry` of its row; kLdg: the row is in global
+// memory and read through the read-only cache
+template <bool kLdg>
 struct BitReader {
   const uint32_t* row;
   int max_words;
@@ -71,7 +80,8 @@ struct BitReader {
   // at least 32 valid bits after the call (zeros past the row)
   __device__ __forceinline__ void fill() {
     if (n < 32) {
-      const uint32_t w = next < max_words ? __ldg(row + next++) : 0u;
+      const uint32_t w =
+          next < max_words ? (kLdg ? __ldg(row + next++) : row[next++]) : 0u;
       buf |= (uint64_t)w << (32 - n);
       n += 32;
     }
@@ -123,9 +133,9 @@ __device__ __forceinline__ void position(int pos, int y_per_mcu, int* dc_t,
 }
 
 // One lane's AC symbols of a block after its DC, from slot 1: writes the
-// nonzero terms into out (when not NULL) and returns false if a code
-// matched nothing (the symbol's bits are then not consumed).
-__device__ __forceinline__ bool walk_ac(BitReader& br, int* bp,
+// nonzero terms into out and returns false if a code matched nothing (the
+// symbol's bits are then not consumed).
+__device__ __forceinline__ bool walk_ac(BitReader<true>& br, int* bp,
                                         const int* bound, const int* delta,
                                         const uint32_t* hv, int S, int* out) {
   int slot = 1;
@@ -143,7 +153,7 @@ __device__ __forceinline__ bool walk_ac(BitReader& br, int* bp,
       slot += 16;
     } else {
       const int k = slot + (sym >> 4);
-      if (out != nullptr && size > 0 && k <= 63)
+      if (size > 0 && k <= 63)
         out[k] = amplitude(peek, len, size);
       slot = k + 1;
     }
@@ -165,7 +175,7 @@ decode_segments_kernel(const uint32_t* __restrict__ streams,
   if (s >= S) return;
   const int nblk = min(__ldg(nblk_lane + s), nblk_seg);
   int bp = entry != nullptr ? __ldg(entry + s) : 0;
-  BitReader br;
+  BitReader<true> br;
   br.init(streams + (size_t)s * max_words, max_words, bp);
   int pred[3] = {0, 0, 0};
   int pos = phase != nullptr ? __ldg(phase + s) % period : 0;
@@ -191,7 +201,145 @@ decode_segments_kernel(const uint32_t* __restrict__ streams,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// -- H: scan_positions, one warp a lane ------------------------------------
+
+constexpr int kLutBits = 9;  // lookahead bits: codes up to 9 bits in one load
+constexpr int kLutSize = 1 << kLutBits;
+constexpr int kLutBytes = 4 * kLutSize * 2;  // 4 tables of uint16 entries
+constexpr int kScanWarps = 4;                // lanes (warps) a CTA
+constexpr int kSmemBudget = 200 * 1024;      // dynamic shared memory a CTA
+// lookahead entries: the bits a step consumes (code and magnitude) in bits
+// 0-4, then in a DC table's entry bit 5 (the block ends here: its DC and
+// an EOB both fit the prefix), in an AC table's bits 5-11 the slot
+// advance (run + 1; 16 for ZRL; 64 for EOB); 0: not in the table
+constexpr unsigned kBlockEnd = 1u << 5;
+
+// the slot advance of AC symbol `sym`
+__device__ __forceinline__ unsigned ac_advance(int sym) {
+  return sym == 0 ? 64u : sym == 0xF0 ? 16u : (unsigned)(sym >> 4) + 1u;
+}
+
+// One lane's tables: the lookahead tables in shared memory, and the
+// canonical arrays of the lane (strided by S) for the codes they miss
+struct LaneTables {
+  const uint16_t* lut;  // [4][kLutSize]
+  const int* bound;
+  const int* delta;
+  const uint32_t* hv;
+  int S;
+  int period;
+  int y_per_mcu;
+
+  __device__ __forceinline__ int search(uint32_t peek, int t,
+                                        int* len) const {
+    return decode_symbol(peek, bound + t * 16 * S, delta + t * 16 * S,
+                         hv + t * 64, S, len);
+  }
+  // the entry of table row t for `peek`, from the lookahead table or the
+  // canonical search; 0: no code matches (length 17)
+  __device__ __forceinline__ unsigned step(uint32_t peek, int t) const {
+    const unsigned e = lut[t * kLutSize + (peek >> (32 - kLutBits))];
+    if (e != 0) return e;
+    int len;
+    const int sym = search(peek, t, &len);
+    if (len > 16) return 0;
+    return (unsigned)(len + (sym & 15)) |
+           ((t & 1) ? ac_advance(sym) << 5 : 0u);
+  }
+};
+
+// Build the lookahead tables of the rows the lane's pattern uses, by the
+// warp.  An entry is decode_symbol's answer for the 9-bit prefix padded
+// with zeros, kept where its code fits the prefix; that answer holds for
+// every peek with the prefix when each bound of a length l <= 9 is a
+// multiple of 2^(16-l), as canonical tables' are (else the row stays
+// empty and every code takes the search).  A DC entry also takes the
+// next code (decode_symbol on the AC row) where the DC code, its
+// magnitude and that code all fit the prefix and it is an EOB.
+__device__ void build_lookahead(uint16_t* lut, const LaneTables& tb, int j) {
+  const unsigned full = 0xffffffffu;
+  bool aligned[4];
+  for (int t = 0; t < 4; ++t) {
+    const bool odd =
+        j < kLutBits &&
+        (__ldg(tb.bound + (t * 16 + j) * tb.S) & ((1 << (15 - j)) - 1)) != 0;
+    aligned[t] = __ballot_sync(full, odd) == 0;
+  }
+  for (int dc = 0; dc < 4; dc += 2) {
+    if (dc == 0 ? tb.y_per_mcu <= 0 : tb.y_per_mcu >= tb.period) continue;
+    for (int q = j; q < kLutSize; q += 32) {
+      const uint32_t peek = (uint32_t)q << (32 - kLutBits);
+      unsigned e_dc = 0, e_ac = 0;
+      int len;
+      if (aligned[dc + 1]) {
+        const int sym = tb.search(peek, dc + 1, &len);
+        if (len <= kLutBits)
+          e_ac = (unsigned)(len + (sym & 15)) | ac_advance(sym) << 5;
+      }
+      if (aligned[dc]) {
+        const int sym = tb.search(peek, dc, &len);
+        if (len <= kLutBits) {
+          const int used = len + (sym & 15);
+          e_dc = (unsigned)used;
+          if (used < kLutBits && aligned[dc + 1]) {
+            int len2;
+            const int sym2 = tb.search(peek << used, dc + 1, &len2);
+            if (sym2 == 0 && used + len2 <= kLutBits)
+              e_dc = (unsigned)(used + len2) | kBlockEnd;
+          }
+        }
+      }
+      lut[dc * kLutSize + q] = (uint16_t)e_dc;
+      lut[(dc + 1) * kLutSize + q] = (uint16_t)e_ac;
+    }
+  }
+  __syncwarp();
+}
+
+// Walk blocks from bit `bp` at MCU position `pos` while a block starts
+// before `end`, at most `max_blocks` of them: returns the blocks walked
+// and leaves bp, pos at the exit.  A block whose DC or AC code matches
+// nothing stops the walk uncounted, bp at its start, and sets *bad.
+__device__ int walk_blocks(const uint32_t* row, int max_words,
+                           const LaneTables& tb, int* bp, int* pos, int end,
+                           int max_blocks, int* bad) {
+  *bad = 0;
+  if (max_blocks <= 0 || *bp >= end) return 0;
+  BitReader<false> br;  // the row may be in shared memory
+  br.init(row, max_words, *bp);
+  int count = 0, cur = *bp;
+  while (true) {
+    int dc_t, comp;
+    position(*pos, tb.y_per_mcu, &dc_t, &comp);
+    br.fill();
+    unsigned e = tb.step(br.peek(), dc_t);
+    if (e == 0) break;
+    int used = (int)(e & 31);
+    br.skip(used);
+    if (!(e & kBlockEnd)) {
+      for (unsigned slot = 1; slot <= 63;) {
+        br.fill();
+        e = tb.step(br.peek(), dc_t + 1);
+        if (e == 0) break;
+        br.skip((int)(e & 31));
+        used += (int)(e & 31);
+        slot += e >> 5;
+      }
+      if (e == 0) break;
+    }
+    cur += used;
+    *bp = cur;
+    ++count;
+    *pos = *pos + 1 == tb.period ? 0 : *pos + 1;
+    if (count >= max_blocks || cur >= end) return count;
+  }
+  *bad = 1;  // the block does not count: bp stays at its start
+  return count;
+}
+
+// One warp a lane: the warp stages the lane's row in shared memory and
+// builds its lookahead tables, then one thread walks the lane.
+__global__ void __launch_bounds__(32 * kScanWarps)
 scan_positions_kernel(const uint32_t* __restrict__ streams,
                       const int* __restrict__ maxc,
                       const int* __restrict__ delt,
@@ -200,43 +348,31 @@ scan_positions_kernel(const uint32_t* __restrict__ streams,
                       const int* __restrict__ limit,
                       const int* __restrict__ phase, int* __restrict__ out,
                       int S, int max_words, int steps, int period,
-                      int y_per_mcu) {
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  if (s >= S) return;
-  int bp = __ldg(entry + s);
-  const int lim = __ldg(limit + s);
-  BitReader br;
-  br.init(streams + (size_t)s * max_words, max_words, bp);
-  int pos = phase != nullptr ? __ldg(phase + s) % period : 0;
-  int count = 0;
-  int bad = 0;
-  for (int step = 0; step < steps && bp < lim;
-       ++step, pos = (pos + 1 == period ? 0 : pos + 1)) {
-    int dc_t, comp;
-    position(pos, y_per_mcu, &dc_t, &comp);
-    br.fill();
-    int len;
-    const int sym = decode_symbol(br.peek(), maxc + dc_t * 16 * S + s,
-                                  delt + dc_t * 16 * S + s,
-                                  hvp + (size_t)s * 256 + dc_t * 64, S, &len);
-    if (len > 16) {
-      bad = 1;
-      break;
-    }
-    int end = bp + len + (sym & 15);
-    br.skip(len + (sym & 15));
-    if (!walk_ac(br, &end, maxc + (dc_t + 1) * 16 * S + s,
-                 delt + (dc_t + 1) * 16 * S + s,
-                 hvp + (size_t)s * 256 + (dc_t + 1) * 64, S, nullptr)) {
-      bad = 1;  // the block does not count: the exit stays at its start
-      break;
-    }
-    bp = end;
-    ++count;
+                      int y_per_mcu, int lane_bytes, int staged) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, j = threadIdx.x & 31;
+  const int s = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (s >= S) return;  // the whole warp: no CTA-wide barrier follows
+  uint16_t* lut = (uint16_t*)(smem + (size_t)warp * lane_bytes);
+  const uint32_t* row = streams + (size_t)s * max_words;
+  if (staged) {
+    uint32_t* r = (uint32_t*)(smem + (size_t)warp * lane_bytes + kLutBytes);
+    for (int w = j; w < max_words; w += 32) r[w] = __ldg(row + w);
+    row = r;
   }
-  out[s] = bp;
-  out[S + s] = count;
-  out[2 * S + s] = bad;
+  const LaneTables tb{lut,  maxc + s, delt + s, hvp + (size_t)s * 256,
+                      S,    period,   y_per_mcu};
+  build_lookahead(lut, tb, j);
+  const int E = __ldg(entry + s), L = __ldg(limit + s);
+  const int P = phase != nullptr ? __ldg(phase + s) % period : 0;
+  if (j == 0) {
+    int bp = E, pos = P, bad;
+    const int count = walk_blocks(row, max_words, tb, &bp, &pos, L, steps,
+                                  &bad);
+    out[s] = bp;
+    out[S + s] = count;
+    out[2 * S + s] = bad;
+  }
 }
 
 }  // namespace
@@ -267,9 +403,28 @@ extern "C" int jt_scan_positions(const void* streams, const void* maxc,
                                  int y_per_mcu, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (S == 0) return (int)cudaGetLastError();
-  scan_positions_kernel<<<(S + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+  // stage each lane's row beside its tables while kScanWarps lanes or at
+  // least one fit in the budget; a longer row stays in global memory
+  const long long row_bytes = ((long long)max_words * 4 + 15) & ~15LL;
+  long long lane_bytes = kLutBytes + row_bytes;
+  int staged = 1, warps = kScanWarps;
+  if (lane_bytes > kSmemBudget) {
+    staged = 0;
+    lane_bytes = kLutBytes;
+  } else {
+    warps = (int)min((long long)kScanWarps, kSmemBudget / lane_bytes);
+  }
+  const int smem = (int)(lane_bytes * warps);
+  if (smem > 48 * 1024) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        scan_positions_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  scan_positions_kernel<<<(S + warps - 1) / warps, 32 * warps, smem, st>>>(
       (const uint32_t*)streams, (const int*)maxc, (const int*)delt,
       (const uint32_t*)hvp, (const int*)entry, (const int*)limit,
-      (const int*)phase, (int*)out, S, max_words, steps, period, y_per_mcu);
+      (const int*)phase, (int*)out, S, max_words, steps < 0 ? 0 : steps,
+      period, y_per_mcu, (int)lane_bytes, staged);
   return (int)cudaGetLastError();
 }

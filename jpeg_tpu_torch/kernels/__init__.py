@@ -47,11 +47,35 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
     """Raise unless ``t`` has this dtype, shape and a contiguous layout."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
+
+
+# kernel -> its C entry point, resolved once (the first lookup builds)
+_entries: dict = {}
+
+# PyTorch's raw queries of the current device and stream (CUDA builds; a
+# CUDA tensor exists, so CUDA is initialized): no lazy-init check and no
+# Stream object
+_raw_device = getattr(torch._C, "_cuda_getDevice", None)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_device() -> int:
+    """The index of PyTorch's current CUDA device."""
+    if _raw_device is not None:
+        return _raw_device()
+    return torch.cuda.current_device()
+
+
+def stream_handle(index: int) -> int:
+    """The raw handle of PyTorch's current stream on CUDA device ``index``."""
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def launch(name: str, device: torch.device, *args) -> None:
@@ -59,9 +83,15 @@ def launch(name: str, device: torch.device, *args) -> None:
     there (building the kernels at first use); raise if the launch failed,
     else count it.  ``args`` are the C entry point's, without the stream.
     """
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _build.entry(name)(*args, stream)
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = _build.entry(name)
+    index, current = device.index, current_device()
+    if index is None or index == current:
+        rc = fn(*args, stream_handle(current))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, stream_handle(index))
     if rc:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")

@@ -45,12 +45,15 @@ Two more sit on kernel A's pixel-block mode (``front.front_dct_px``):
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from .. import _build
 from ..ops import dct, symbols
 from ..ops.color import MCU_420, Layout
 from ..ops.pack import max_words_for_slots
-from . import check_tensor, front, launch, on_cpu
+from . import check_tensor, front, launch, on_cpu, stream_handle
 from .lut import NULL_INDEX
 
 # -- B: symbolize_bits -------------------------------------------------------
@@ -159,20 +162,48 @@ def segment_offsets_plain(bits: torch.Tensor):
     return ends - bits, ends[:, -1].contiguous()
 
 
+# kernel C's workspace by (device, stream): its counters and a status word
+# per tile, zeroed once here and zeroed again by every launch's last CTA
+_offsets_work: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _offsets_words(S: int, nblk: int) -> int:
+    """The int64 words of kernel C's workspace at [S, nblk], as its source
+    sizes it."""
+    return _build.library("segment_offsets").jt_segment_offsets_words(
+        S, nblk)
+
+
+def _offsets_workspace(device: torch.device, words: int) -> int:
+    """The address of a zeroed int64 workspace of at least ``words`` on
+    ``device`` for PyTorch's current stream there."""
+    key = (device.index, stream_handle(device.index))
+    work = _offsets_work.get(key)
+    if work is None or work.numel() < words:
+        work = torch.zeros(max(words, 1024), dtype=torch.int64,
+                           device=device)
+        _offsets_work[key] = work
+    return work.data_ptr()
+
+
 def segment_offsets(bits: torch.Tensor):
     """[S, nblk] int32 block bits -> (offsets [S, nblk], totals [S]) int32.
 
-    Offsets are exclusive and restart at 0 in every segment.
+    Offsets are exclusive and restart at 0 in every segment.  On the card
+    both outputs are views of one buffer (one allocation, the cheaper).
     """
-    if on_cpu(bits):
+    dev = bits.device
+    if dev.type != "cuda" and on_cpu(bits):
         return segment_offsets_plain(bits)
     S, nblk = bits.shape
     check_tensor("bits", bits, torch.int32, (S, nblk))
-    offs = torch.empty_like(bits)
-    totals = torch.empty((S,), dtype=torch.int32, device=bits.device)
-    launch("segment_offsets", bits.device, bits.data_ptr(), offs.data_ptr(),
-           totals.data_ptr(), S, nblk)
-    return offs, totals
+    n = S * nblk
+    out = bits.new_empty(n + S)
+    ptr = out.data_ptr()
+    launch("segment_offsets", dev, bits.data_ptr(), ptr, ptr + 4 * n,
+           _offsets_workspace(dev, _offsets_words(S, nblk)), S, nblk)
+    return out.as_strided((S, nblk), (nblk, 1)), out.as_strided((S,), (1,), n)
 
 
 # -- D: place ----------------------------------------------------------------

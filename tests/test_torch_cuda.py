@@ -354,3 +354,72 @@ def test_speculative_kernels_equal_twins_native_and_cpu(dev, kind):
     cpu = decode_jpeg(data, "device", device="cpu")
     diff = (card.cpu().to(torch.int32) - cpu.to(torch.int32)).abs()
     assert int(diff.max()) <= 2 and float((diff <= 1).double().mean()) > 0.999
+
+
+@pytest.mark.parametrize("S,nblk", [(3, 1), (2, 4095), (2, 4096), (2, 4097),
+                                    (1, 57600), (1, 38400), (640, 240)])
+def test_segment_offsets_edges_equal_twin(dev, S, nblk):
+    """Kernel C's look-back scan at its tile's edges (4096 blocks), long
+    single segments and many short ones, 50 launches back to back."""
+    rng = np.random.default_rng(S * 100003 + nblk)
+    bits = torch.from_numpy(
+        rng.integers(0, 1729, (S, nblk)).astype(np.int32)).to(dev)
+    want = fused.segment_offsets_plain(bits)
+    runs = [fused.segment_offsets(bits) for _ in range(50)]
+    torch.cuda.synchronize()
+    for got in runs:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["random", "cap64", "short", "rows8000",
+                                  "rows20000", "rows40000", "rows60000"])
+def test_scan_positions_edges_equal_twin(dev, case):
+    """Kernel H against its twin off the fixpoint's path: random (entry,
+    phase) pairs (entries inside codes and past the limit), a cap of 64,
+    lanes shorter than 32 blocks, and rows padded into each shared-memory
+    layout of ``jt_scan_positions``: four staged lanes a CTA past the 48 KiB
+    default (8000 words), two (20000), one (40000), and rows left in
+    global memory (60000)."""
+    from jpeg_tpu_torch.kernels import huffdec as hd
+    from jpeg_tpu_torch.pipelines import speculative as spec
+    h, w = 96, 128
+    imgs = synthetic_batch(np.random.default_rng(67), 1, h, w)
+    if case == "random":
+        data = FastBatchEncoder(h, w, EncodeConfig(scan_layout="interleaved"),
+                                device="cpu").encode_batch(imgs)[0]
+    else:
+        data = JpegEncoder(EncodeConfig(), device="cpu").encode(imgs[0])
+    p = spec._parse_spec(data)
+    chains = [(hd.unstuff_segments(e)[0], q, n) for e, q, n in p["scan_list"]]
+    lanes = spec.prepare_lanes(chains, dev, 128, p["sampling"])
+    S, cap = lanes.streams.shape[0], spec.first_cap(lanes)
+    rng = np.random.default_rng(71)
+    streams, limits, mw = lanes.streams, lanes.limits, lanes.max_words
+    if case == "random":
+        pick = rng.integers(0, S, 256)
+        entries = rng.integers(0, lanes.limit_bits[pick] + 64)
+        phases = rng.integers(0, 12, 256)
+        idx = torch.from_numpy(pick).to(dev)
+        streams = streams[idx].contiguous()
+        limits = limits[:, idx].contiguous()
+        tables = (lanes.tables[0][:, idx].contiguous(),
+                  lanes.tables[1][:, idx].contiguous(),
+                  lanes.tables[2][idx].contiguous())
+    else:
+        fx = spec.fixpoint(lanes)
+        assert fx is not None
+        entries, phases, tables = fx[0], fx[1], lanes.tables
+        if case == "cap64":
+            cap = 64
+        elif case == "short":
+            limits = spec._put(dev, entries + rng.integers(40, 201, S))
+        else:
+            mw = int(case[4:])
+            streams = torch.nn.functional.pad(
+                streams, (0, mw - lanes.max_words))
+    ep = spec._put(dev, entries, phases)
+    args = (streams, *tables, ep[0:1], limits, cap, mw, lanes.sampling,
+            ep[1:2])
+    for a, b in zip(hd.scan_positions(*args), hd.scan_positions_plain(*args)):
+        assert torch.equal(a, b)
