@@ -20,10 +20,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    (both orders), its pixel-block mode (rows and the transposed ``xt``),
    K7 (``dct_attach_pack_segments``: A's pixel mode, B, C, D) and K18a
    (``dct_index_xt``: A's pixel mode, E) at the shapes of a 4x1920x1280
-   batch of each sampling; then C again at the main paths' shapes and
-   its edges (nblk of 1 and its tile's 4096 +- 1, one segment of 57600
-   or 38400 blocks, 640 segments), 200 launches back to back each;
-   integer outputs must be exactly equal;
+   batch of each sampling; A again on uniform-random frames in every
+   mode and order (every coefficient nonzero, truncation boundaries
+   dense); then C again at the main paths' shapes and its edges (nblk of
+   1 and its tile's 4096 +- 1, one segment of 57600 or 38400 blocks, 640
+   segments), 200 launches back to back each; integer outputs must be
+   exactly equal;
 3. the main paths, each with the launch counts reset just before its run
    and read just after, every kernel of the path launched:
    a. ``FastBatchEncoder.encode_batch`` on 16x640x640, 4x1920x1280 and
@@ -50,8 +52,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
       file must equal the CPU plain path's.
    e. decode (``decode_jpeg_batch`` and ``decode_jpeg``, engine "device",
       so an ineligible stream raises): first kernel G against its plain
-      twin on the first blocks of a few lanes, clean and corrupted; then
-      the port's own restart files, encoded on the card: 16x640x640 4:2:0
+      twin on every lane of the 16x640x640 r1 batch, clean and corrupted,
+      on the 8 long lanes of the r17 pair, and on 64 of the r1 lanes with
+      rows padded into each of G's shared-memory layouts, with random bits
+      and with tables off the lookahead step; then the port's own restart
+      files, encoded on the card: 16x640x640 4:2:0
       r1 (640 segments), 4x1920x1280 r1, 2x1920x1088 r17 (4 segments per
       image, which jpeg_tpu sends to its host decoder), 4:2:2 2x1920x1080
       r27, 4:4:4 4x1080x1080 r1, the Y scan of a 3-scan 1920x1280 file
@@ -66,10 +71,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
       1920x1280 file at the round-1 guesses and at the fixpoint, clean and
       corrupted, on 512 random (entry, phase) pairs over the DRI-less
       4:2:0 file's lanes, with a cap of 64, on lanes shorter than 32
-      blocks and on rows padded to each of H's shared-memory layouts
-      (four staged rows a CTA past 48 KB, two, one, and rows left in
-      global memory), and G's speculative mode against its twin on the
-      fixpoint's payload of a DRI-less 4:2:0 1920x1088 file; the
+      blocks, on rows padded to each of H's shared-memory layouts (four
+      staged rows a CTA past 48 KB, two, one, and rows left in global
+      memory) and on random bits with tables off the lookahead step, and
+      G's speculative mode against its twin on the fixpoint's payload of
+      a DRI-less 4:2:0 1920x1088 file and on 512 random (entry, phase)
+      pairs over its lanes (its tables, and tables off the step); the
       fixpoint's decision on two corrupted copies of a 3-scan 640x640
       file against the CPU path's; then ``decode_jpeg`` of the port's
       default 3-scan files at 640x640 and 1920x1280, ``decode_jpeg_batch``
@@ -100,7 +107,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    4:4:4 case of 3d: its call ms, device time by kernel and idle share;
    each decode case of 3e: its call ms, device time, kernel G's part and
    idle share; kernel G alone at the 16x640x640 lanes with its bound, its
-   twin on the same inputs, and the host entropy route on those files;
+   twin on the same inputs, and the host entropy route on those files, G
+   on the r17 pair's long lanes, its set-up's share of a launch and a
+   fill of its output alone;
    each case of 3f: its call ms, device time, H's µs per round x rounds,
    G's payload µs, idle share and the host entropy route on its files
    (the restart cases beside kernel G's route on the same files); H and
@@ -258,15 +267,15 @@ KERNEL_INFO = {
     # kernel A's 4:2:2 and 4:4:4 modes: launches are front_dct's on the
     # paths of that sampling
     "front_dct 4:2:2": ("jpeg_tpu_torch/csrc/front_dct.cu "
-                        "(front_dct_kernel<kS422>)",
+                        "(front_dct_kernel<ColorMode<kS422>>)",
                         "jpeg_tpu/kernels/front.py:823 (K1), front.py:916 "
                         "(K2) and front.py:502 (K5) at sampling 422"),
     "front_dct 4:4:4": ("jpeg_tpu_torch/csrc/front_dct.cu "
-                        "(front_dct_kernel<kS444>)",
+                        "(front_dct_kernel<ColorMode<kS444>>)",
                         "jpeg_tpu/kernels/front.py:823 (K1), front.py:916 "
                         "(K2) and front.py:502 (K5) at sampling 444"),
     "front_dct_px": ("jpeg_tpu_torch/csrc/front_dct.cu "
-                     "(front_dct_px_kernel)",
+                     "(front_dct_kernel<PxMode>)",
                      "the DCT of jpeg_tpu/kernels/fused.py:730 (K7) and "
                      "fused.py:688 (K18a)"),
     # K7 and K18a: A's pixel mode and B + C + D, or E; no caller on a path
@@ -963,11 +972,13 @@ def huff_bound(entropy_bytes: int, table_sets: int, lane_ints: int,
 
 def decode_phase(dcases: list[dict], dev, launches: dict):
     """Phase 3e: kernel G against its twin on case 0's full kernel inputs
-    (clean and corrupted), then each case's main-path run with the launch
-    counts reset just before it (added to ``launches``), checked by
-    ``check_decode_case``.  Returns (the twin's max_abs_err, case 0's
-    kernel inputs, its clean inputs on ``dev``, [(label, zero-argument call
-    of the case)])."""
+    (clean and corrupted) and beyond them (``decode_extra_checks``), then
+    each case's main-path run with the launch counts reset just before it
+    (added to ``launches``), checked by ``check_decode_case``.  Returns (the
+    twin's max_abs_err, case 0's kernel inputs, its clean inputs on
+    ``dev``, [(label, zero-argument call of the case)], the r17 lanes'
+    kernel call, twin seconds, bound and label from
+    ``decode_extra_checks``)."""
     g_in = pdec._lane_inputs([pdec._parse_device_eligible(f)
                               for f in dcases[0]["files"]])
     g_streams, g_maxc, g_delt, g_hvp, g_nblk, g_samp, g_seg, g_mw = g_in
@@ -989,6 +1000,9 @@ def decode_phase(dcases: list[dict], dev, launches: dict):
         if err:
             raise AssertionError(f"kernel decode_segments disagrees with its "
                                  f"plain twin: max_abs_err {err}")
+    extra_err, r17 = decode_extra_checks(twin_in["clean"], g_in, dcases[2],
+                                         dev, np.random.default_rng(9))
+    twin_err = max(twin_err, extra_err)
     runs = []
     for case in dcases:
         def fn(files=case["files"], one=case["one"]):
@@ -1008,7 +1022,91 @@ def decode_phase(dcases: list[dict], dev, launches: dict):
             launches[name] += n
         print("  " + check_decode_case(case, imgs, dev))
         runs.append((case["label"], fn))
-    return twin_err, g_in, twin_in["clean"], runs
+    return twin_err, g_in, twin_in["clean"], runs, r17
+
+
+def decode_extra_checks(g_dev: list, g_in, r17_case: dict, dev,
+                        rng: np.random.Generator):
+    """Kernel G against its twin beyond case 0's lanes: the 8 long lanes of
+    the r17 pair (``r17_case``, about 12240 blocks and 16 KB a lane); 64
+    lanes of case 0 with rows padded into each of G's shared-memory layouts
+    (``LANE_LAYOUTS``, the layout asked of the source); the same lanes
+    with random bits, on its tables and on tables off the lookahead step
+    (``off_step``).  Returns (the max |error|, (the r17 lanes' kernel call,
+    the seconds its twin took, its bound in ms, a label))."""
+    *_, samp, nseg, mw = g_in
+    streams, maxc, delt, hvp, nblk = g_dev
+    streams, hvp = streams[:64].contiguous(), hvp[:64].contiguous()
+    maxc, delt, nblk = (t[:, :64].contiguous() for t in (maxc, delt, nblk))
+    r17_in = pdec._lane_inputs([pdec._parse_device_eligible(f)
+                                for f in r17_case["files"]])
+    a17 = [torch.from_numpy(x).to(dev) for x in r17_in[:5]]
+    samp17, nseg17, mw17 = r17_in[5:]
+    check_layout("decode_segments", mw17, (4, True))
+    cases = [(f"the r17 pair's {a17[0].shape[0]} lanes of {nseg17} blocks, "
+              f"{mw17} words", (*a17, samp17, nseg17, mw17))]
+    for words, layout, what in LANE_LAYOUTS:
+        check_layout("decode_segments", words, layout)
+        cases.append((f"64 lanes, rows of {words} words: {what}", (
+            torch.nn.functional.pad(streams, (0, words - mw)), maxc, delt,
+            hvp, nblk, samp, nseg, words)))
+    noise = random_rows(streams, rng)
+    cases += [("64 lanes of random bits", (noise, maxc, delt, hvp, nblk,
+                                            samp, nseg, mw)),
+              ("64 lanes, tables off the lookahead step", (
+                  streams, off_step(maxc), delt, hvp, nblk, samp, nseg, mw)),
+              ("64 lanes of random bits, tables off the lookahead step", (
+                  noise, off_step(maxc), delt, hvp, nblk, samp, nseg, mw))]
+    err, twin_s = 0, []
+    for label, args in cases:
+        t0 = time.perf_counter()
+        want = khd.decode_segments_plain(*args)
+        torch.cuda.synchronize()
+        twin_s.append(time.perf_counter() - t0)
+        got = khd.decode_segments(*args)
+        e = max_abs_err((got.cpu(),), (want.cpu(),))
+        err = max(err, e)
+        print(f"kernel decode_segments ({label}): {tuple(got.shape)} "
+              f"{got.dtype}: max_abs_err {e} (tolerance: exact); nonzero "
+              f"{int((want != 0).sum())}; the twin took {twin_s[-1]:.1f} s")
+        if e:
+            raise AssertionError(f"kernel decode_segments disagrees with its "
+                                 f"plain twin ({label}): max_abs_err {e}")
+    infos = [pdec._parse_device_eligible(f) for f in r17_case["files"]]
+    bound17 = huff_bound(sum(len(seg) for info in infos
+                             for seg in info["segs"]), len(infos),
+                         a17[0].shape[0], int(a17[4].sum()) * 64 * 4)
+    args17 = cases[0][1]
+    return err, (lambda: khd.decode_segments(*args17), twin_s[0], bound17,
+                 cases[0][0])
+
+
+def g_timing_extras(g_full, g_dev: list, g_in, r17, card: str,
+                    runs: int) -> None:
+    """Phase 4, kernel G beyond its record row: on the r17 pair's long
+    lanes, beside its twin and bound; at case 0's lanes, the share of its
+    set-up (every lane's tables and row staged, no block walked, one block
+    written) and a fill of its output alone (what a memset before it would
+    cost)."""
+    kernel, twin_s, bound17, label = r17
+    k0, k1 = cuda_ms(kernel, 5, 3), cuda_ms(kernel, 5, 3)
+    print(f"timing kernel decode_segments (G) at {label} on [{card}]: "
+          f"{(k0 + k1) / 2:.4f} ms ({k0:.4f}, {k1:.4f}), "
+          f"{device_text(device_us(kernel, 3))}, bound {bound17:.5f} ms "
+          f"(bytes); plain twin {twin_s:.1f} s (one call, phase 3e)")
+    *_, samp, nseg, mw = g_in
+    none = torch.zeros_like(g_dev[4])
+    setup = device_us(lambda: khd.decode_segments(
+        *g_dev[:4], none, samp, 1, mw), runs)
+    full = device_us(g_full, runs)
+    out = g_full()
+    fill = device_us(out.zero_, runs)
+    print(f"kernel decode_segments (G) at {g_dev[0].shape[0]} lanes on "
+          f"[{card}]: set-up alone (no block walked, one written) "
+          f"{device_text(setup)}, {setup[0] / full[0]:.4f} of the whole "
+          f"launch's {full[0]:.2f} µs; a fill of its "
+          f"{out.numel() * 4 / 1e6:.1f} MB output (zero_) "
+          f"{device_text(fill)}")
 
 
 def spec_cases(rng: np.random.Generator, dev, dcases: list[dict]):
@@ -1245,6 +1343,8 @@ def spec_kernel_phase(scan_file: bytes, il_file: bytes, dev):
         raise AssertionError(f"kernel decode_segments (speculative) "
                              f"disagrees with its plain twin: max_abs_err "
                              f"{g_err}")
+    g_err = max(g_err, spec_g_random(il, np.random.default_rng(
+        SPEC_RNG_OFFSET + 101)))
     calls["G"] = (lambda: khd.decode_segments(*gargs, **gkw),
                   lambda: khd.decode_segments_plain(*gargs, **gkw))
     bounds_ = {"scan_positions": (spec_bound(lanes, 3 * S * 4), "bytes"),
@@ -1257,6 +1357,42 @@ def spec_kernel_phase(scan_file: bytes, il_file: bytes, dev):
                   f"DRI-less 4:2:0 {SPEC_INTERLEAVED[0][2]}x"
                   f"{SPEC_INTERLEAVED[0][1]} file"}
     return h_err, g_err, calls, bounds_, shapes
+
+
+def spec_g_random(il: "pspec.SpecLanes", rng: np.random.Generator) -> int:
+    """Kernel G's speculative mode against its twin on 512 random (entry,
+    phase) pairs over the DRI-less 4:2:0 file's lanes (entries anywhere up
+    to 64 bits past the limit, up to 256 blocks a lane), on the file's
+    tables and on tables off the lookahead step.  Returns the max |error|."""
+    n, nseg = 512, 256
+    pick = rng.integers(0, il.streams.shape[0], n)
+    idx = torch.from_numpy(pick).to(il.streams.device)
+    entries, phases, nblk = pspec._put(
+        il.streams.device, rng.integers(0, il.limit_bits[pick] + 64),
+        rng.integers(0, 12, n), rng.integers(0, nseg + 1, n))
+    maxc, delt, hvp = (il.tables[0][:, idx].contiguous(),
+                       il.tables[1][:, idx].contiguous(),
+                       il.tables[2][idx].contiguous())
+    streams = il.streams[idx].contiguous()
+    err = 0
+    for label, mc in (("", maxc), (", tables off the lookahead step",
+                                   off_step(maxc))):
+        args = (streams, mc, delt, hvp, nblk[None], il.sampling, nseg,
+                il.max_words)
+        kw = dict(entry=entries[None], phase=phases[None], phased=True)
+        got = khd.decode_segments(*args, **kw)
+        want = khd.decode_segments_plain(*args, **kw)
+        e = max_abs_err((got.cpu(),), (want.cpu(),))
+        err = max(err, e)
+        print(f"kernel decode_segments speculative (512 random (entry, "
+              f"phase) over the DRI-less 4:2:0 lanes{label}): "
+              f"{tuple(got.shape)} {got.dtype}: max_abs_err {e} (tolerance: "
+              f"exact); nonzero {int((want != 0).sum())}")
+        if e:
+            raise AssertionError(f"kernel decode_segments (speculative) "
+                                 f"disagrees with its plain twin{label}: "
+                                 f"max_abs_err {e}")
+    return err
 
 
 # kernel C's shapes beyond the main paths': (label, S, nblk); its tile is
@@ -1371,14 +1507,41 @@ def offsets_host_costs(bits: torch.Tensor, card: str) -> None:
               f"{k} {host_us(f):.2f}" for k, f in parts.items()))
 
 
-# row sizes (words) that put kernel H in each of its shared-memory layouts
-# (csrc/huffdec.cu, jt_scan_positions: a 4 KB lookahead table and the
-# staged row a lane, at most four lanes and 200 KB a CTA)
-H_ROW_WORDS = [(8000, "four staged lanes a CTA, 141 KiB, past the 48 KiB "
-                       "default"),
-               (20000, "two staged lanes a CTA, 164 KiB"),
-               (40000, "one staged lane a CTA, 160 KiB"),
-               (60000, "rows left in global memory")]
+# row sizes (words) that put kernels G and H in each of their shared-memory
+# layouts (csrc/huffdec.cu, lane_layout: a lane's tables, G's block
+# buffer and the staged row, at most four lanes and 200 KB a CTA): (words,
+# (lanes a CTA, rows staged), what that is); the source is asked for each
+LANE_LAYOUTS = [(8000, (4, True), "four staged lanes a CTA, past the 48 KiB "
+                                  "default"),
+                (20000, (2, True), "two staged lanes a CTA"),
+                (40000, (1, True), "one staged lane a CTA"),
+                (60000, (4, False), "rows left in global memory")]
+
+
+def check_layout(kernel: str, words: int, want: tuple) -> None:
+    """Raise unless the source lays out rows of ``words`` words as
+    ``want`` (lanes a CTA, staged) for ``kernel``."""
+    got = khd.lane_layout(kernel, words)
+    if got != want:
+        raise AssertionError(f"{kernel}: rows of {words} words take the "
+                             f"layout {got}, not {want}")
+
+
+def random_rows(streams: torch.Tensor, rng: np.random.Generator):
+    """Uniform-random bits in the shape of ``streams``: codes longer than 9
+    bits, codes that match nothing, runs past slot 63."""
+    return torch.from_numpy(rng.integers(-2**31, 2**31, tuple(
+        streams.shape), dtype=np.int64).astype(np.int32)).to(streams.device)
+
+
+def off_step(maxc: torch.Tensor) -> torch.Tensor:
+    """``maxc`` with every bound of the luma AC and chroma DC rows raised
+    by one: still increasing, but no bound of a length up to 9 a multiple
+    of its step, so those rows take no lookahead table (every code is
+    searched)."""
+    out = maxc.clone()
+    out[16:48] += 1
+    return out
 
 
 def scan_extra_checks(scan: "pspec.SpecLanes", scan_fx, il: "pspec.SpecLanes",
@@ -1388,8 +1551,9 @@ def scan_extra_checks(scan: "pspec.SpecLanes", scan_fx, il: "pspec.SpecLanes",
     to 64 bits past the limit: inside codes, past the limit); a cap of 64
     at the 3-scan fixpoint (every long lane stops at the cap); lanes
     shorter than 32 blocks (the limit 40-200 bits past the fixpoint's
-    entry); the fixpoint with each row padded to ``H_ROW_WORDS``' sizes,
-    one for each of H's shared-memory layouts.  Returns the max |error|."""
+    entry); the fixpoint with each row padded to ``LANE_LAYOUTS``' sizes,
+    one for each of H's shared-memory layouts; random bits on tables off
+    the lookahead step.  Returns the max |error|."""
     n = 512
     pick = torch.from_numpy(rng.integers(0, il.streams.shape[0], n)).to(dev)
     lim = il.limits[:, pick].contiguous()
@@ -1413,11 +1577,16 @@ def scan_extra_checks(scan: "pspec.SpecLanes", scan_fx, il: "pspec.SpecLanes",
          (scan.streams, *scan.tables, ep[0:1], short, pspec.first_cap(scan),
           scan.max_words, scan.sampling, ep[1:2])),
     ]
-    for words, layout in H_ROW_WORDS:
-        cases.append((f"rows of {words} words: {layout}", (
+    for words, layout, what in LANE_LAYOUTS:
+        check_layout("scan_positions", words, layout)
+        cases.append((f"rows of {words} words: {what}", (
             torch.nn.functional.pad(scan.streams, (0, words - scan.max_words)),
             *scan.tables, ep[0:1], scan.limits, pspec.first_cap(scan), words,
             scan.sampling, ep[1:2])))
+    cases.append(("random bits, tables off the lookahead step, 512 random "
+                  "(entry, phase)", (
+                      random_rows(cases[0][1][0], rng),
+                      off_step(cases[0][1][1]), *cases[0][1][2:])))
     err = 0
     for label, args in cases:
         got = khd.scan_positions(*args)
@@ -1789,6 +1958,42 @@ def main() -> int:
         ("4:2:2 layout", k18a("422"), k18a("422", plain=True))]
     for name in ("front_dct_px", "dct_attach_pack_segments", "dct_index_xt"):
         at_of[name] = f"{b5}x{h5}x{w5} 4:4:4 pixel blocks"
+    # A on uniform-random frames (every coefficient nonzero, truncation
+    # boundaries dense) in every mode and order; from a fifth generator
+    rng5 = np.random.default_rng(args.seed + 8)
+    xr = torch.from_numpy(rng5.integers(0, 256, (B, H, W * 3),
+                                        dtype=np.uint8)).to(dev)
+    x5r = torch.from_numpy(rng5.integers(0, 256, (b5, h5, w5 * 3),
+                                         dtype=np.uint8)).to(dev)
+    plane_r = torch.from_numpy(rng5.integers(0, 256, (1, 1280, 1920),
+                                             dtype=np.uint8)).to(dev)
+    px5r = {sp: color.mcu_blocks(*color.rgb_to_ycbcr(
+        x5r.view(b5, h5, w5, 3), sp), sp) for sp in ("422", "444")}
+    random_checks = [
+        ("front_dct", "", xr), (f"front_dct {LABEL['422']}", "422", x5r),
+        (f"front_dct {LABEL['444']}", "444", x5r)]
+    for name, sp, xx in random_checks:
+        for order in ("mcu", "scan"):
+            kw = dict(order=order, sampling=sp or "420")
+            more_checks[name].append((
+                f"{order} order, uniform-random frames",
+                lambda xx=xx, kw=kw: front.front_dct(xx, *consts, **kw),
+                lambda xx=xx, kw=kw: front.front_dct_plain(xx, *consts,
+                                                           **kw)))
+    more_checks["front_dct"].append((
+        "gray, a uniform-random 1x1280x1920 plane",
+        lambda: front.front_dct_gray(plane_r, *consts[:3]),
+        lambda: front.front_dct_gray_plain(plane_r, *consts[:3])))
+    for sp in ("422", "444"):
+        for tr in (False, True):
+            src = px5r[sp].reshape(-1, 64).T.contiguous() if tr else px5r[sp]
+            more_checks["front_dct_px"].append((
+                f"{LABEL[sp]} layout, {'transposed xt, ' if tr else ''}"
+                f"uniform-random frames",
+                lambda src=src, sp=sp, tr=tr: front.front_dct_px(
+                    src, *consts, LAYOUTS[sp], transposed=tr),
+                lambda src=src, sp=sp, tr=tr: front.front_dct_px_plain(
+                    src, *consts, LAYOUTS[sp], transposed=tr)))
     # one PyTorch call computing the same function, where there is one:
     # C's offsets are a cumsum; E's histogram is one bincount (the image
     # offset folded into the index)
@@ -1934,7 +2139,7 @@ def main() -> int:
     # -- phase 3e: decode: kernel G against its twin, then each case --------
     t_decode = time.perf_counter()
     dcases = decode_cases(np.random.default_rng(args.seed + 5), dev)
-    errs["decode_segments"], g_in, g_dev, decode_runs = decode_phase(
+    errs["decode_segments"], g_in, g_dev, decode_runs, r17 = decode_phase(
         dcases, dev, launches)
     print(f"phase 3e (decode) took {time.perf_counter() - t_decode:.1f} s")
 
@@ -2129,6 +2334,7 @@ def main() -> int:
           f"(twin: one call each); the decode timings took "
           f"{time.perf_counter() - t_decode:.1f} s")
 
+    g_timing_extras(g_full, g_dev, g_in, r17, card, args.runs)
     spec_timings(spec_runs, scases, spec_calls, spec_bounds, spec_shapes,
                  card, args.runs, decode_n, dev, times, bound)
 

@@ -1,5 +1,5 @@
 // Kernels G and H: baseline Huffman decode on the card, one lane per row of
-// bits; G walks a lane with one thread, H with one warp.
+// bits, one warp a lane.
 //
 // G, decode_segments -> zig-zag coefficients [S, nblk_seg, 64] int32.
 // Replaces jpeg_tpu/kernels/huffdec.py::decode_segments (the pallas_call of
@@ -33,45 +33,49 @@
 // period-1 pattern, rows 0 and 1).  Nothing but the exit bit, the block
 // count and the bad flag is written.
 //
-// What bounds them on an H100: bytes, as a roofline count: the streams in
-// plus the outputs over 3.35 TB/s (at 16x640x640 4:2:0 G's zz write alone
-// is 16 x 9600 blocks x 256 B = 39.3 MB, about 12 us; H writes 12 bytes a
-// lane).  Both are far from that, since a Huffman walk is a chain of
-// dependent symbol decodes, bounded by latency.  G: one thread walks each
-// lane's bits serially (a 64-bit bit buffer refilled from global memory, a
-// linear search over the 16 code lengths per symbol), so each launch takes
-// the latency of its longest lane's symbol chain; its output is zeroed by
-// one cudaMemsetAsync, then each lane writes its DC terms and its nonzero
-// AC terms; one warp per CTA spreads the lanes over the SMs.  H keeps the
-// one-thread walk but shortens each step: a warp a lane stages the lane's
-// row in shared memory (rows too long for the budget stay in global
-// memory) and builds a 9-bit lookahead table per table row there, so a
-// code of at most 9 bits (DC codes and EOB, most of a block's symbols)
-// decodes with one shared load instead of the 16-step search, and a DC
-// code followed by an EOB within the prefix ends its block in one load;
-// then one thread of the warp walks the lane.  Four lanes a CTA.
+// What bounds them on an H100: as a roofline count, bytes: the streams in
+// plus the outputs over 3.35 TB/s (at 16x640x640 4:2:0 G's zz write is 16 x
+// 9600 blocks x 256 B = 39.3 MB, about 12 us; H writes 12 bytes a lane).  In
+// fact a lane's walk is a chain of dependent symbol decodes, bounded by
+// latency: a launch takes its longest lane's chain.  So both kernels make
+// each step of that chain short.  A warp takes a lane (four lanes a CTA,
+// lane_layout): it stages the lane's canonical tables and its row in shared
+// memory (rows too long for the budget stay in global memory, read through
+// the read-only cache) and builds a 9-bit lookahead table per table row
+// there; then one thread walks the lane.  A code of at most 9 bits (DC
+// codes and EOB, most of a block's symbols) decodes with one shared load,
+// and a DC code with an EOB after it inside the prefix ends its block in
+// that load; a longer code searches the staged canonical table from length
+// 10.  G's walker adds each term into a shared buffer of 16 blocks; the
+// warp flushes it to zz in coalesced 16-byte stores and writes the zeros of
+// the blocks past the lane's count, so every element of zz is written once
+// and no memset precedes the launch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 32;
-
 // A lane's bits from bit `entry` of its row; kLdg: the row is in global
-// memory and read through the read-only cache
+// memory and read through the read-only cache.  The next word is loaded
+// one refill ahead, so a refill waits on no load.
 template <bool kLdg>
 struct BitReader {
   const uint32_t* row;
   int max_words;
-  int next;      // next word of the row to load
-  uint64_t buf;  // the next bits of the stream, left-aligned
-  int n;         // valid bits in buf
+  int next;        // the row's word in `ahead`
+  uint32_t ahead;  // word `next` of the row (zero past it)
+  uint64_t buf;    // the next bits of the stream, left-aligned
+  int n;           // valid bits in buf
 
+  __device__ __forceinline__ uint32_t word(int w) const {
+    return w < max_words ? (kLdg ? __ldg(row + w) : row[w]) : 0u;
+  }
   // start at bit `entry` (>= 0) of the row
   __device__ void init(const uint32_t* r, int mw, int entry) {
     row = r;
     max_words = mw;
     next = entry >> 5;
+    ahead = word(next);
     buf = 0;
     n = 0;
     fill();
@@ -80,10 +84,9 @@ struct BitReader {
   // at least 32 valid bits after the call (zeros past the row)
   __device__ __forceinline__ void fill() {
     if (n < 32) {
-      const uint32_t w =
-          next < max_words ? (kLdg ? __ldg(row + next++) : row[next++]) : 0u;
-      buf |= (uint64_t)w << (32 - n);
+      buf |= (uint64_t)ahead << (32 - n);
       n += 32;
+      ahead = word(++next);
     }
   }
   __device__ __forceinline__ uint32_t peek() const {
@@ -95,26 +98,6 @@ struct BitReader {
   }
 };
 
-// One canonical decode of a 32-bit peek against table t of lane s:
-// returns the symbol and sets *len to the code length (17: no match).
-__device__ __forceinline__ int decode_symbol(uint32_t peek,
-                                             const int* __restrict__ bound,
-                                             const int* __restrict__ delta,
-                                             const uint32_t* __restrict__ hv,
-                                             int S, int* len) {
-  const int p = (int)(peek >> 16);
-  for (int l = 1; l <= 16; ++l) {
-    if (p < __ldg(bound + (l - 1) * S)) {
-      int v = (p >> (16 - l)) + __ldg(delta + (l - 1) * S);
-      v = min(max(v, 0), 255);
-      *len = l;
-      return (int)((__ldg(hv + (v >> 2)) >> (8 * (v & 3))) & 0xFFu);
-    }
-  }
-  *len = 17;
-  return 0;
-}
-
 // the `size` bits after a code of length `len` (len + size <= 31), as
 // T.81 F.2.2.1's EXTEND gives them
 __device__ __forceinline__ int amplitude(uint32_t peek, int len, int size) {
@@ -123,45 +106,256 @@ __device__ __forceinline__ int amplitude(uint32_t peek, int len, int size) {
   return v < (1 << (size - 1)) ? v - ((1 << size) - 1) : v;
 }
 
-// The tables of MCU position `pos`: the DC table row (the AC row follows
-// it) and the component
-__device__ __forceinline__ void position(int pos, int y_per_mcu, int* dc_t,
-                                         int* comp) {
-  const bool luma = pos < y_per_mcu;
-  *comp = luma ? 0 : pos - y_per_mcu + 1;
-  *dc_t = luma ? 0 : 2;
+constexpr int kLutBits = 9;  // lookahead bits: codes up to 9 bits in one load
+constexpr int kLutSize = 1 << kLutBits;
+constexpr int kLanesPerCta = 4;          // lanes (warps) a CTA
+constexpr int kSmemBudget = 200 * 1024;  // dynamic shared memory a CTA
+constexpr int kFlushBlocks = 16;         // G's buffered blocks a lane
+// a lane's shared memory: its canonical tables (bound, delta: 64 ints
+// each; HUFFVAL: 256 words), its lookahead tables (4 x kLutSize uint16),
+// for G its block buffer, then its row when staged
+constexpr int kCanonWords = 64 + 64 + 256;
+constexpr int kTablesBytes = kCanonWords * 4 + 4 * kLutSize * 2;
+constexpr int kFlushBytes = kFlushBlocks * 64 * 4;
+constexpr int kScanFixedBytes = kTablesBytes;
+constexpr int kDecodeFixedBytes = kTablesBytes + kFlushBytes;
+static_assert(kTablesBytes % 16 == 0, "lane regions stay 16-byte aligned");
+
+// A lookahead entry (uint16; 0: not in the table, or no code matches):
+// bits 0-4 the bits the step consumes (the code and its magnitude; with
+// kBlockEnd also the EOB code after them), bits 12-15 the magnitude size;
+// in an AC row bits 5-11 the slot advance (run + 1; 16 for ZRL; 64 for
+// EOB), in a DC row bit 5 kBlockEnd (the block ends here: its DC and an EOB
+// both fit the prefix) and bits 6-9 that EOB's code length.
+constexpr unsigned kBlockEnd = 1u << 5;
+
+// the slot advance of AC symbol `sym`
+__device__ __forceinline__ unsigned ac_advance(int sym) {
+  return sym == 0 ? 64u : sym == 0xF0 ? 16u : (unsigned)(sym >> 4) + 1u;
 }
 
-// One lane's AC symbols of a block after its DC, from slot 1: writes the
-// nonzero terms into out and returns false if a code matched nothing (the
-// symbol's bits are then not consumed).
-__device__ __forceinline__ bool walk_ac(BitReader<true>& br, int* bp,
-                                        const int* bound, const int* delta,
-                                        const uint32_t* hv, int S, int* out) {
-  int slot = 1;
-  while (true) {
-    br.fill();
-    const uint32_t peek = br.peek();
-    int len;
-    const int sym = decode_symbol(peek, bound, delta, hv, S, &len);
-    if (len > 16) return false;
-    const int size = sym & 15;
-    br.skip(len + size);
-    *bp += len + size;
-    if (sym == 0) return true;  // EOB
-    if (sym == 0xF0) {          // ZRL
-      slot += 16;
-    } else {
-      const int k = slot + (sym >> 4);
-      if (size > 0 && k <= 63)
-        out[k] = amplitude(peek, len, size);
-      slot = k + 1;
+// the entry of symbol `sym` with a code of `len` bits in an AC or DC row
+__device__ __forceinline__ unsigned make_entry(int len, int sym, bool ac) {
+  const int size = sym & 15;
+  return (unsigned)(len + size) | (unsigned)size << 12 |
+         (ac ? ac_advance(sym) << 5 : 0u);
+}
+
+__device__ __forceinline__ int huffval(const uint32_t* hv, int v) {
+  v = min(max(v, 0), 255);
+  return (int)((hv[v >> 2] >> (8 * (v & 3))) & 0xFFu);
+}
+
+// One lane's tables in shared memory: the canonical rows (for the codes the
+// lookahead misses) and the lookahead rows
+struct LaneTables {
+  const int* bound;     // [4][16]
+  const int* delta;     // [4][16]
+  const uint32_t* hv;   // [4][64]
+  const uint16_t* lut;  // [4][kLutSize]
+  unsigned aligned;     // bit t: row t's lookahead row is in use
+  int period;
+  int y_per_mcu;
+
+  // The canonical decode of a 32-bit peek against row t from code length
+  // l0 on (lengths below l0 known not to match): the symbol, and *len the
+  // code length (17: no match)
+  __device__ __forceinline__ int search(uint32_t peek, int t, int l0,
+                                        int* len) const {
+    const int p = (int)(peek >> 16);
+    for (int l = l0; l <= 16; ++l) {
+      if (p < bound[t * 16 + l - 1]) {
+        *len = l;
+        return huffval(hv + t * 64,
+                       (p >> (16 - l)) + delta[t * 16 + l - 1]);
+      }
     }
-    if (slot > 63) return true;
+    *len = 17;
+    return 0;
+  }
+  // the entry of row t for `peek` where the lookahead table has none: the
+  // search's (from length 10 where the row is in use: no code of at most
+  // 9 bits matches where its entry is 0); 0: no code matches
+  __device__ __forceinline__ unsigned search_entry(uint32_t peek,
+                                                   int t) const {
+    int len;
+    const int sym =
+        search(peek, t, (aligned >> t & 1) ? kLutBits + 1 : 1, &len);
+    return len > 16 ? 0u : make_entry(len, sym, t & 1);
+  }
+  // the lookahead table's entry of row t for `peek` (0: none)
+  __device__ __forceinline__ unsigned lookup(uint32_t peek, int t) const {
+    return lut[t * kLutSize + (peek >> (32 - kLutBits))];
+  }
+  // the entry of row t for `peek`; 0: no code matches
+  __device__ __forceinline__ unsigned entry(uint32_t peek, int t) const {
+    const unsigned e = lookup(peek, t);
+    return e != 0 ? e : search_entry(peek, t);
+  }
+};
+
+// The first code of at most 9 bits that the 16-bit peek p matches in row
+// t (the canonical search cut at length 9): the symbol, *len (17: none)
+__device__ __forceinline__ int prefix_symbol(const LaneTables& tb, int t,
+                                             int p, int* len) {
+  int l = 17;
+#pragma unroll
+  for (int k = kLutBits; k >= 1; --k)
+    if (p < tb.bound[t * 16 + k - 1]) l = k;
+  *len = l;
+  if (l > kLutBits) return 0;
+  return huffval(tb.hv + t * 64, (p >> (16 - l)) + tb.delta[t * 16 + l - 1]);
+}
+
+// The warp's set-up of lane s: the canonical tables to shared memory, the
+// row too when kStaged, and the lookahead rows of the rows the lane's
+// pattern uses.  An entry is the canonical search's answer for the 9-bit
+// prefix padded with zeros, kept where its code fits the prefix; that
+// answer holds for every peek with the prefix when each bound of a length
+// l <= 9 is a multiple of 2^(16-l), as canonical tables' are (else the
+// row's entries stay 0 and every code takes the full search).  A DC entry
+// also takes the EOB after its code and magnitude where all of it fits the
+// prefix, read from the AC row's entry (built first) for the bits after.
+// Returns the lane's row (in shared or global memory).
+template <bool kStaged>
+__device__ const uint32_t* lane_setup(unsigned char* lane, int row_offset,
+                                      const uint32_t* row, int max_words,
+                                      const int* maxc, const int* delt,
+                                      const uint32_t* hvp, int S,
+                                      int period, int y_per_mcu, int j,
+                                      LaneTables* out) {
+  int* bound = (int*)lane;
+  int* delta = bound + 64;
+  uint32_t* hv = (uint32_t*)(delta + 64);
+  uint16_t* lut = (uint16_t*)(hv + 256);
+  for (int i = j; i < 64; i += 32) {
+    bound[i] = __ldg(maxc + i * S);
+    delta[i] = __ldg(delt + i * S);
+  }
+  for (int i = j; i < 256; i += 32) hv[i] = __ldg(hvp + i);
+  if (kStaged) {
+    uint32_t* r = (uint32_t*)(lane + row_offset);
+    for (int w = j; w < max_words; w += 32) r[w] = __ldg(row + w);
+    row = r;
+  }
+  __syncwarp();
+  LaneTables tb{bound, delta, hv, lut, 0u, period, y_per_mcu};
+  for (int t = 0; t < 4; ++t) {
+    const bool odd = j < kLutBits &&
+                     (bound[t * 16 + j] & ((1 << (15 - j)) - 1)) != 0;
+    if (__ballot_sync(0xffffffffu, odd) == 0) tb.aligned |= 1u << t;
+  }
+  // the table rows of the pattern: luma (0, 1) where it has luma blocks,
+  // chroma (2, 3) where it has chroma blocks
+  const unsigned used = (y_per_mcu > 0 ? 3u : 0u) |
+                        (y_per_mcu < period ? 12u : 0u);
+  tb.aligned &= used;
+  for (int t = 1; t < 4; t += 2) {
+    if (!(used >> t & 1)) continue;
+    const bool on = tb.aligned >> t & 1;
+    for (int q = j; q < kLutSize; q += 32) {
+      int len;
+      const int sym = on ? prefix_symbol(tb, t, q << (16 - kLutBits), &len)
+                         : 0;
+      lut[t * kLutSize + q] =
+          (uint16_t)(on && len <= kLutBits ? make_entry(len, sym, true) : 0u);
+    }
+  }
+  __syncwarp();
+  for (int t = 0; t < 4; t += 2) {
+    if (!(used >> t & 1)) continue;
+    const bool on = tb.aligned >> t & 1;
+    for (int q = j; q < kLutSize; q += 32) {
+      unsigned e = 0;
+      int len;
+      const int sym = on ? prefix_symbol(tb, t, q << (16 - kLutBits), &len)
+                         : 0;
+      if (on && len <= kLutBits) {
+        e = make_entry(len, sym, false);
+        const int u = (int)(e & 31);
+        if (u < kLutBits) {  // an EOB code after it inside the prefix?
+          const unsigned e2 =
+              lut[(t + 1) * kLutSize + ((q << u) & (kLutSize - 1))];
+          const int len2 = (int)(e2 & 31);
+          if (e2 != 0 && (e2 >> 5 & 127) == 64 && u + len2 <= kLutBits)
+            e = (unsigned)(u + len2) | kBlockEnd | (unsigned)len2 << 6 |
+                (unsigned)(sym & 15) << 12;
+        }
+      }
+      lut[t * kLutSize + q] = (uint16_t)e;
+    }
+  }
+  __syncwarp();
+  *out = tb;
+  return row;
+}
+
+// -- G: decode_segments ----------------------------------------------------
+
+// One thread walks blocks [b, bend) of its lane from the reader's position,
+// MCU position *pos and DC predictors pred (luma, Cb, Cr), writing each
+// block's nonzero terms into its row of `blocks` (zeroed).  The walk is
+// pipelined by hand: as soon as a code is consumed, the lookup of the next
+// one goes out, and the amplitude and store of the current one are done
+// while it is in flight.
+template <bool kLdg>
+__device__ __forceinline__ void decode_blocks(BitReader<kLdg>& br,
+                                              const LaneTables& tb, int b,
+                                              int bend, int* pos, int* pred,
+                                              int* blocks) {
+  for (; b < bend; ++b, blocks += 64) {
+    const bool luma = *pos < tb.y_per_mcu;
+    const int dc_t = luma ? 0 : 2;
+    const int comp = luma ? 0 : *pos - tb.y_per_mcu + 1;
+    *pos = *pos + 1 == tb.period ? 0 : *pos + 1;
+    br.fill();
+    const uint32_t dpeek = br.peek();
+    const unsigned d = tb.entry(dpeek, dc_t);
+    if (d == 0) continue;  // no match: a zero block, no bits consumed
+    br.skip((int)(d & 31));
+    const bool ac = !(d & kBlockEnd);
+    uint32_t peek = 0;
+    unsigned e = 0;
+    if (ac) {  // the first AC lookup goes out before the DC's own work
+      br.fill();
+      peek = br.peek();
+      e = tb.lookup(peek, dc_t + 1);
+    }
+    const int size = (int)(d >> 12);
+    // the predictors stay in registers: constant indices only
+    const int dc = (comp == 0 ? pred[0] : comp == 1 ? pred[1] : pred[2]) +
+                   amplitude(dpeek, (int)(d & 31) - size - (int)(d >> 6 & 15),
+                             size);
+    if (comp == 0) {
+      pred[0] = dc;
+    } else if (comp == 1) {
+      pred[1] = dc;
+    } else {
+      pred[2] = dc;
+    }
+    blocks[0] = dc;
+    if (!ac) continue;
+    for (unsigned slot = 1; slot <= 63;) {
+      if (e == 0) {
+        e = tb.search_entry(peek, dc_t + 1);
+        if (e == 0) break;  // no match: the block ends, the bits stay
+      }
+      const uint32_t p = peek;
+      const unsigned cur = e;
+      br.skip((int)(cur & 31));
+      br.fill();
+      peek = br.peek();
+      e = tb.lookup(peek, dc_t + 1);  // the next code's, maybe unused
+      const int sz = (int)(cur >> 12);
+      const unsigned adv = cur >> 5 & 127, k = slot + adv - 1;
+      if (sz != 0 && k <= 63) blocks[k] = amplitude(p, (int)(cur & 31) - sz, sz);
+      slot += adv;
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <bool kStaged>
+__global__ void __launch_bounds__(32 * kLanesPerCta)
 decode_segments_kernel(const uint32_t* __restrict__ streams,
                        const int* __restrict__ maxc,
                        const int* __restrict__ delt,
@@ -170,160 +364,78 @@ decode_segments_kernel(const uint32_t* __restrict__ streams,
                        const int* __restrict__ entry,
                        const int* __restrict__ phase,
                        int* __restrict__ zz, int S, int max_words,
-                       int nblk_seg, int period, int y_per_mcu) {
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  if (s >= S) return;
-  const int nblk = min(__ldg(nblk_lane + s), nblk_seg);
-  int bp = entry != nullptr ? __ldg(entry + s) : 0;
-  BitReader<true> br;
-  br.init(streams + (size_t)s * max_words, max_words, bp);
-  int pred[3] = {0, 0, 0};
-  int pos = phase != nullptr ? __ldg(phase + s) % period : 0;
-  for (int b = 0; b < nblk; ++b, pos = (pos + 1 == period ? 0 : pos + 1)) {
-    int dc_t, comp;
-    position(pos, y_per_mcu, &dc_t, &comp);
-    int* out = zz + ((size_t)s * nblk_seg + b) * 64;
-    br.fill();
-    const uint32_t peek = br.peek();
-    int len;
-    const int sym = decode_symbol(peek, maxc + dc_t * 16 * S + s,
-                                  delt + dc_t * 16 * S + s,
-                                  hvp + (size_t)s * 256 + dc_t * 64, S, &len);
-    if (len > 16) continue;  // no match: a zero block, no bits consumed
-    const int size = sym & 15;
-    pred[comp] += amplitude(peek, len, size);
-    out[0] = pred[comp];
-    br.skip(len + size);
-    bp += len + size;
-    walk_ac(br, &bp, maxc + (dc_t + 1) * 16 * S + s,
-            delt + (dc_t + 1) * 16 * S + s,
-            hvp + (size_t)s * 256 + (dc_t + 1) * 64, S, out);
-  }
-}
-
-// -- H: scan_positions, one warp a lane ------------------------------------
-
-constexpr int kLutBits = 9;  // lookahead bits: codes up to 9 bits in one load
-constexpr int kLutSize = 1 << kLutBits;
-constexpr int kLutBytes = 4 * kLutSize * 2;  // 4 tables of uint16 entries
-constexpr int kScanWarps = 4;                // lanes (warps) a CTA
-constexpr int kSmemBudget = 200 * 1024;      // dynamic shared memory a CTA
-// lookahead entries: the bits a step consumes (code and magnitude) in bits
-// 0-4, then in a DC table's entry bit 5 (the block ends here: its DC and
-// an EOB both fit the prefix), in an AC table's bits 5-11 the slot
-// advance (run + 1; 16 for ZRL; 64 for EOB); 0: not in the table
-constexpr unsigned kBlockEnd = 1u << 5;
-
-// the slot advance of AC symbol `sym`
-__device__ __forceinline__ unsigned ac_advance(int sym) {
-  return sym == 0 ? 64u : sym == 0xF0 ? 16u : (unsigned)(sym >> 4) + 1u;
-}
-
-// One lane's tables: the lookahead tables in shared memory, and the
-// canonical arrays of the lane (strided by S) for the codes they miss
-struct LaneTables {
-  const uint16_t* lut;  // [4][kLutSize]
-  const int* bound;
-  const int* delta;
-  const uint32_t* hv;
-  int S;
-  int period;
-  int y_per_mcu;
-
-  __device__ __forceinline__ int search(uint32_t peek, int t,
-                                        int* len) const {
-    return decode_symbol(peek, bound + t * 16 * S, delta + t * 16 * S,
-                         hv + t * 64, S, len);
-  }
-  // the entry of table row t for `peek`, from the lookahead table or the
-  // canonical search; 0: no code matches (length 17)
-  __device__ __forceinline__ unsigned step(uint32_t peek, int t) const {
-    const unsigned e = lut[t * kLutSize + (peek >> (32 - kLutBits))];
-    if (e != 0) return e;
-    int len;
-    const int sym = search(peek, t, &len);
-    if (len > 16) return 0;
-    return (unsigned)(len + (sym & 15)) |
-           ((t & 1) ? ac_advance(sym) << 5 : 0u);
-  }
-};
-
-// Build the lookahead tables of the rows the lane's pattern uses, by the
-// warp.  An entry is decode_symbol's answer for the 9-bit prefix padded
-// with zeros, kept where its code fits the prefix; that answer holds for
-// every peek with the prefix when each bound of a length l <= 9 is a
-// multiple of 2^(16-l), as canonical tables' are (else the row stays
-// empty and every code takes the search).  A DC entry also takes the
-// next code (decode_symbol on the AC row) where the DC code, its
-// magnitude and that code all fit the prefix and it is an EOB.
-__device__ void build_lookahead(uint16_t* lut, const LaneTables& tb, int j) {
-  const unsigned full = 0xffffffffu;
-  bool aligned[4];
-  for (int t = 0; t < 4; ++t) {
-    const bool odd =
-        j < kLutBits &&
-        (__ldg(tb.bound + (t * 16 + j) * tb.S) & ((1 << (15 - j)) - 1)) != 0;
-    aligned[t] = __ballot_sync(full, odd) == 0;
-  }
-  for (int dc = 0; dc < 4; dc += 2) {
-    if (dc == 0 ? tb.y_per_mcu <= 0 : tb.y_per_mcu >= tb.period) continue;
-    for (int q = j; q < kLutSize; q += 32) {
-      const uint32_t peek = (uint32_t)q << (32 - kLutBits);
-      unsigned e_dc = 0, e_ac = 0;
-      int len;
-      if (aligned[dc + 1]) {
-        const int sym = tb.search(peek, dc + 1, &len);
-        if (len <= kLutBits)
-          e_ac = (unsigned)(len + (sym & 15)) | ac_advance(sym) << 5;
-      }
-      if (aligned[dc]) {
-        const int sym = tb.search(peek, dc, &len);
-        if (len <= kLutBits) {
-          const int used = len + (sym & 15);
-          e_dc = (unsigned)used;
-          if (used < kLutBits && aligned[dc + 1]) {
-            int len2;
-            const int sym2 = tb.search(peek << used, dc + 1, &len2);
-            if (sym2 == 0 && used + len2 <= kLutBits)
-              e_dc = (unsigned)(used + len2) | kBlockEnd;
-          }
-        }
-      }
-      lut[dc * kLutSize + q] = (uint16_t)e_dc;
-      lut[(dc + 1) * kLutSize + q] = (uint16_t)e_ac;
-    }
-  }
+                       int nblk_seg, int period, int y_per_mcu,
+                       int lane_bytes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, j = threadIdx.x & 31;
+  const int s = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (s >= S) return;  // the whole warp: no CTA-wide barrier follows
+  unsigned char* lane = smem + (size_t)warp * lane_bytes;
+  LaneTables tb;
+  const uint32_t* row = lane_setup<kStaged>(
+      lane, kDecodeFixedBytes, streams + (size_t)s * max_words, max_words,
+      maxc + s, delt + s, hvp + (size_t)s * 256, S, period, y_per_mcu, j,
+      &tb);
+  int4* buf = (int4*)(lane + kTablesBytes);
+  const int4 zero = make_int4(0, 0, 0, 0);
+  for (int i = j; i < kFlushBlocks * 16; i += 32) buf[i] = zero;
   __syncwarp();
+  const int nblk = min(__ldg(nblk_lane + s), nblk_seg);
+  BitReader<!kStaged> br;  // thread 0's walk
+  int pos = 0, pred[3] = {0, 0, 0};
+  if (j == 0) {
+    br.init(row, max_words, entry != nullptr ? __ldg(entry + s) : 0);
+    pos = phase != nullptr ? __ldg(phase + s) % period : 0;
+  }
+  int4* out = (int4*)(zz + (size_t)s * nblk_seg * 64);
+  int b0 = 0;
+  for (; b0 < nblk; b0 += kFlushBlocks) {
+    if (j == 0)
+      decode_blocks(br, tb, b0, min(b0 + kFlushBlocks, nblk), &pos, pred,
+                    (int*)buf);
+    __syncwarp();
+    const int n16 = min(kFlushBlocks, nblk_seg - b0) * 16;
+    int4* dst = out + (size_t)b0 * 16;
+    for (int i = j; i < n16; i += 32) {
+      dst[i] = buf[i];
+      buf[i] = zero;
+    }
+    __syncwarp();
+  }
+  for (size_t i = (size_t)b0 * 16 + j; i < (size_t)nblk_seg * 16; i += 32)
+    out[i] = zero;
 }
+
+// -- H: scan_positions -----------------------------------------------------
 
 // Walk blocks from bit `bp` at MCU position `pos` while a block starts
 // before `end`, at most `max_blocks` of them: returns the blocks walked
 // and leaves bp, pos at the exit.  A block whose DC or AC code matches
 // nothing stops the walk uncounted, bp at its start, and sets *bad.
+template <bool kLdg>
 __device__ int walk_blocks(const uint32_t* row, int max_words,
                            const LaneTables& tb, int* bp, int* pos, int end,
                            int max_blocks, int* bad) {
   *bad = 0;
   if (max_blocks <= 0 || *bp >= end) return 0;
-  BitReader<false> br;  // the row may be in shared memory
+  BitReader<kLdg> br;
   br.init(row, max_words, *bp);
   int count = 0, cur = *bp;
   while (true) {
-    int dc_t, comp;
-    position(*pos, tb.y_per_mcu, &dc_t, &comp);
+    const int dc_t = *pos < tb.y_per_mcu ? 0 : 2;
     br.fill();
-    unsigned e = tb.step(br.peek(), dc_t);
+    unsigned e = tb.entry(br.peek(), dc_t);
     if (e == 0) break;
     int used = (int)(e & 31);
     br.skip(used);
     if (!(e & kBlockEnd)) {
       for (unsigned slot = 1; slot <= 63;) {
         br.fill();
-        e = tb.step(br.peek(), dc_t + 1);
+        e = tb.entry(br.peek(), dc_t + 1);
         if (e == 0) break;
         br.skip((int)(e & 31));
         used += (int)(e & 31);
-        slot += e >> 5;
+        slot += e >> 5 & 127;
       }
       if (e == 0) break;
     }
@@ -337,9 +449,8 @@ __device__ int walk_blocks(const uint32_t* row, int max_words,
   return count;
 }
 
-// One warp a lane: the warp stages the lane's row in shared memory and
-// builds its lookahead tables, then one thread walks the lane.
-__global__ void __launch_bounds__(32 * kScanWarps)
+template <bool kStaged>
+__global__ void __launch_bounds__(32 * kLanesPerCta)
 scan_positions_kernel(const uint32_t* __restrict__ streams,
                       const int* __restrict__ maxc,
                       const int* __restrict__ delt,
@@ -348,34 +459,79 @@ scan_positions_kernel(const uint32_t* __restrict__ streams,
                       const int* __restrict__ limit,
                       const int* __restrict__ phase, int* __restrict__ out,
                       int S, int max_words, int steps, int period,
-                      int y_per_mcu, int lane_bytes, int staged) {
+                      int y_per_mcu, int lane_bytes) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, j = threadIdx.x & 31;
   const int s = blockIdx.x * (blockDim.x >> 5) + warp;
   if (s >= S) return;  // the whole warp: no CTA-wide barrier follows
-  uint16_t* lut = (uint16_t*)(smem + (size_t)warp * lane_bytes);
-  const uint32_t* row = streams + (size_t)s * max_words;
-  if (staged) {
-    uint32_t* r = (uint32_t*)(smem + (size_t)warp * lane_bytes + kLutBytes);
-    for (int w = j; w < max_words; w += 32) r[w] = __ldg(row + w);
-    row = r;
-  }
-  const LaneTables tb{lut,  maxc + s, delt + s, hvp + (size_t)s * 256,
-                      S,    period,   y_per_mcu};
-  build_lookahead(lut, tb, j);
-  const int E = __ldg(entry + s), L = __ldg(limit + s);
-  const int P = phase != nullptr ? __ldg(phase + s) % period : 0;
+  LaneTables tb;
+  const uint32_t* row = lane_setup<kStaged>(
+      smem + (size_t)warp * lane_bytes, kScanFixedBytes,
+      streams + (size_t)s * max_words, max_words, maxc + s, delt + s,
+      hvp + (size_t)s * 256, S, period, y_per_mcu, j, &tb);
   if (j == 0) {
-    int bp = E, pos = P, bad;
-    const int count = walk_blocks(row, max_words, tb, &bp, &pos, L, steps,
-                                  &bad);
+    int bp = __ldg(entry + s);
+    int pos = phase != nullptr ? __ldg(phase + s) % period : 0, bad;
+    const int count = walk_blocks<!kStaged>(row, max_words, tb, &bp, &pos,
+                                            __ldg(limit + s), steps, &bad);
     out[s] = bp;
     out[S + s] = count;
     out[2 * S + s] = bad;
   }
 }
 
+// -- the layout both kernels share ------------------------------------------
+
+struct LaneLayout {
+  int lanes;       // lanes (warps) a CTA
+  int staged;      // rows in shared memory (else read from global)
+  int lane_bytes;  // shared memory a lane
+};
+
+// A lane's row is staged beside its `fixed_bytes` of tables and buffers
+// while kLanesPerCta lanes, or fewer but at least one, fit the budget; a
+// longer row stays in global memory.
+LaneLayout lane_layout(int max_words, int fixed_bytes) {
+  const long long row_bytes = ((long long)max_words * 4 + 15) & ~15LL;
+  if (fixed_bytes + row_bytes > kSmemBudget)
+    return {kLanesPerCta, 0, fixed_bytes};
+  const int lane_bytes = (int)(fixed_bytes + row_bytes);
+  return {kSmemBudget / lane_bytes < kLanesPerCta ? kSmemBudget / lane_bytes
+                                                  : kLanesPerCta,
+          1, lane_bytes};
+}
+
+// Launch a lane kernel (its staged or global instance) over S lanes in
+// layout L; the kernel's last argument is the lane's bytes.
+template <typename... P, typename... A>
+int launch_lanes(void (*staged)(P...), void (*global)(P...),
+                 const LaneLayout& L, int S, cudaStream_t st, A... args) {
+  void (*kernel)(P...) = L.staged ? staged : global;
+  const int smem = L.lane_bytes * L.lanes;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  kernel<<<(S + L.lanes - 1) / L.lanes, 32 * L.lanes, smem, st>>>(
+      args..., L.lane_bytes);
+  return (int)cudaGetLastError();
+}
+
+constexpr int kDecodeSegments = 0, kScanPositions = 1;
+
+int fixed_bytes(int kernel) {
+  return kernel == kDecodeSegments ? kDecodeFixedBytes : kScanFixedBytes;
+}
+
 }  // namespace
+
+// The layout of kernel `kernel` (0: G, 1: H) for rows of max_words words:
+// lanes a CTA x 2 + 1 if the rows are staged in shared memory
+extern "C" int jt_lane_layout(int max_words, int kernel) {
+  const LaneLayout L = lane_layout(max_words, fixed_bytes(kernel));
+  return L.lanes * 2 + L.staged;
+}
 
 extern "C" int jt_decode_segments(const void* streams, const void* maxc,
                                   const void* delt, const void* hvp,
@@ -383,16 +539,14 @@ extern "C" int jt_decode_segments(const void* streams, const void* maxc,
                                   const void* phase, void* zz, int S,
                                   int max_words, int nblk_seg, int period,
                                   int y_per_mcu, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t out_bytes = (size_t)S * nblk_seg * 64 * sizeof(int);
-  if (out_bytes == 0) return (int)cudaGetLastError();
-  cudaError_t rc = cudaMemsetAsync(zz, 0, out_bytes, st);
-  if (rc != cudaSuccess) return (int)rc;
-  decode_segments_kernel<<<(S + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      (const uint32_t*)streams, (const int*)maxc, (const int*)delt,
-      (const uint32_t*)hvp, (const int*)nblk_lane, (const int*)entry,
-      (const int*)phase, (int*)zz, S, max_words, nblk_seg, period, y_per_mcu);
-  return (int)cudaGetLastError();
+  if (S == 0 || nblk_seg == 0) return (int)cudaGetLastError();
+  return launch_lanes(
+      decode_segments_kernel<true>, decode_segments_kernel<false>,
+      lane_layout(max_words, fixed_bytes(kDecodeSegments)), S,
+      (cudaStream_t)stream, (const uint32_t*)streams, (const int*)maxc,
+      (const int*)delt, (const uint32_t*)hvp, (const int*)nblk_lane,
+      (const int*)entry, (const int*)phase, (int*)zz, S, max_words, nblk_seg,
+      period, y_per_mcu);
 }
 
 extern "C" int jt_scan_positions(const void* streams, const void* maxc,
@@ -401,30 +555,12 @@ extern "C" int jt_scan_positions(const void* streams, const void* maxc,
                                  const void* phase, void* out, int S,
                                  int max_words, int steps, int period,
                                  int y_per_mcu, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
   if (S == 0) return (int)cudaGetLastError();
-  // stage each lane's row beside its tables while kScanWarps lanes or at
-  // least one fit in the budget; a longer row stays in global memory
-  const long long row_bytes = ((long long)max_words * 4 + 15) & ~15LL;
-  long long lane_bytes = kLutBytes + row_bytes;
-  int staged = 1, warps = kScanWarps;
-  if (lane_bytes > kSmemBudget) {
-    staged = 0;
-    lane_bytes = kLutBytes;
-  } else {
-    warps = (int)min((long long)kScanWarps, kSmemBudget / lane_bytes);
-  }
-  const int smem = (int)(lane_bytes * warps);
-  if (smem > 48 * 1024) {
-    cudaError_t rc = cudaFuncSetAttribute(
-        scan_positions_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (rc != cudaSuccess) return (int)rc;
-  }
-  scan_positions_kernel<<<(S + warps - 1) / warps, 32 * warps, smem, st>>>(
-      (const uint32_t*)streams, (const int*)maxc, (const int*)delt,
-      (const uint32_t*)hvp, (const int*)entry, (const int*)limit,
-      (const int*)phase, (int*)out, S, max_words, steps < 0 ? 0 : steps,
-      period, y_per_mcu, (int)lane_bytes, staged);
-  return (int)cudaGetLastError();
+  return launch_lanes(
+      scan_positions_kernel<true>, scan_positions_kernel<false>,
+      lane_layout(max_words, fixed_bytes(kScanPositions)), S,
+      (cudaStream_t)stream, (const uint32_t*)streams, (const int*)maxc,
+      (const int*)delt, (const uint32_t*)hvp, (const int*)entry,
+      (const int*)limit, (const int*)phase, (int*)out, S, max_words,
+      steps < 0 ? 0 : steps, period, y_per_mcu);
 }

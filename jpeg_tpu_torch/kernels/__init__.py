@@ -54,6 +54,14 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: tensor must be contiguous")
 
 
+def aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """``t``, or a fresh contiguous copy of it where its data does not start
+    on an ``nbytes`` boundary (a kernel's vector copies need that)."""
+    if t.data_ptr() % nbytes == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 # kernel -> its C entry point, resolved once (the first lookup builds)
 _entries: dict = {}
 

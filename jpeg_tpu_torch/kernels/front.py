@@ -16,7 +16,7 @@ import torch
 
 from ..ops import color, dct
 from ..ops.color import SAMPLING_GEOMETRY, Layout
-from . import check_tensor, launch, on_cpu
+from . import aligned, check_tensor, launch, on_cpu
 
 # the output orders of kernel A's color mode, and its grayscale mode
 ORDERS = {"mcu": 0, "scan": 1}
@@ -69,6 +69,7 @@ def front_dct(rgb_flat: torch.Tensor, m: torch.Tensor, bias: torch.Tensor,
                          f"the {mcu_w}x{mcu_h} MCU")
     check_tensor("rgb", rgb_flat, torch.uint8, (B, H, W3))
     _check_consts(m, bias=bias, ql=ql, qc=qc)
+    rgb_flat = aligned(rgb_flat, 16)  # the kernel copies 16-byte pieces
     n_blocks = (H // mcu_h) * (W3 // (3 * mcu_w)) * (ypm + 2)
     shape = (B, n_blocks, 64) if order == "mcu" else (B * n_blocks, 64)
     out = torch.empty(shape, dtype=torch.int16, device=rgb_flat.device)
@@ -114,6 +115,7 @@ def front_dct_px(px: torch.Tensor, m: torch.Tensor, bias: torch.Tensor,
     if not 0 <= ypm <= period or period < 1:
         raise ValueError(f"front_dct_px: bad layout {tuple(layout)}")
     _check_consts(m, bias=bias, ql=ql, qc=qc)
+    px = aligned(px, 4 if transposed else 16)  # [N, 64]: 16-byte pieces
     out = torch.empty((S, nblk, 64), dtype=torch.int16, device=px.device)
     launch("front_dct_px", px.device, px.data_ptr(), m.data_ptr(),
            bias.data_ptr(), ql.data_ptr(), qc.data_ptr(), out.data_ptr(), S,
@@ -143,6 +145,7 @@ def front_dct_gray(plane: torch.Tensor, m: torch.Tensor, bias: torch.Tensor,
                          f"the 8x8 block")
     check_tensor("plane", plane, torch.uint8, (B, H, W))
     _check_consts(m, bias=bias, ql=ql)
+    plane = aligned(plane, 8)  # the kernel copies block rows of 8 bytes
     out = torch.empty((B, (H // 8) * (W // 8), 64), dtype=torch.int16,
                       device=plane.device)
     launch("front_dct", plane.device, plane.data_ptr(), m.data_ptr(),

@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _build
 from ..core import tables as T
 from . import check_tensor, launch, on_cpu
 
@@ -536,6 +537,20 @@ def decode_segments(streams: torch.Tensor, maxc: torch.Tensor,
            _ptr(phase) if phased else None, zz.data_ptr(), Sp, max_words,
            nblk_seg, len(pattern), y_per_mcu)
     return zz
+
+
+# the kernels of csrc/huffdec.cu by their code in jt_lane_layout
+_LAYOUT_KERNELS = {"decode_segments": 0, "scan_positions": 1}
+
+
+def lane_layout(kernel: str, max_words: int) -> tuple[int, bool]:
+    """The shared-memory layout kernel G or H (``kernel``) takes for rows
+    of ``max_words`` words, as its source chooses it (``lane_layout`` in
+    ``csrc/huffdec.cu``): (lanes a CTA, whether the rows are staged in
+    shared memory; else they are read from global memory)."""
+    code = _build.library("huffdec").jt_lane_layout(
+        max_words, _LAYOUT_KERNELS[kernel])
+    return code >> 1, bool(code & 1)
 
 
 def _scan_steps(cap_blocks: int) -> int:

@@ -423,3 +423,108 @@ def test_scan_positions_edges_equal_twin(dev, case):
             ep[1:2])
     for a, b in zip(hd.scan_positions(*args), hd.scan_positions_plain(*args)):
         assert torch.equal(a, b)
+
+
+def _g_lanes(dev):
+    """Kernel G's inputs for a 2x64x96 r1 file pair (dynamic tables), on
+    ``dev``: (streams, maxc, delt, hvp, nblk, sampling, nblk_seg, words)."""
+    from jpeg_tpu_torch.pipelines import decode as dec
+    imgs = synthetic_batch(np.random.default_rng(73), 2, 64, 96)
+    cfg = EncodeConfig(scan_layout="interleaved", huffman="dynamic",
+                       restart_interval_mcu_rows=1)
+    datas = FastBatchEncoder(64, 96, cfg, device="cpu").encode_batch(imgs)
+    *arrays, samp, nseg, mw = dec._lane_inputs(
+        [dec._parse_device_eligible(d) for d in datas])
+    return [torch.from_numpy(a).to(dev) for a in arrays] + [samp, nseg, mw]
+
+
+@pytest.mark.parametrize("case", ["random_bits", "off_step",
+                                  "random_bits_off_step", "rows8000",
+                                  "rows20000", "rows40000", "rows60000",
+                                  "speculative_random"])
+def test_decode_segments_edges_equal_twin(dev, case):
+    """Kernel G against its twin off the main path: random bits (codes
+    longer than the 9-bit lookahead, codes that match nothing, runs past
+    slot 63), tables whose bounds are off the lookahead step (every code
+    searched), rows padded into each shared-memory layout of
+    ``jt_decode_segments`` (four, two and one staged lanes a CTA, and rows
+    left in global memory, as the source reports them), and random (entry,
+    phase) pairs in the speculative mode."""
+    from jpeg_tpu_torch.kernels import huffdec as hd
+    streams, maxc, delt, hvp, nblk, samp, nseg, mw = _g_lanes(dev)
+    rng = np.random.default_rng(79)
+    noise = torch.from_numpy(rng.integers(
+        -2**31, 2**31, tuple(streams.shape), dtype=np.int64).astype(
+            np.int32)).to(dev)
+    off = maxc.clone()
+    off[16:48] += 1
+    kw = {}
+    if case.startswith("random_bits"):
+        streams = noise
+    if case.endswith("off_step"):
+        maxc = off
+    if case.startswith("rows"):
+        words = int(case[4:])
+        want = {8000: (4, True), 20000: (2, True), 40000: (1, True),
+                60000: (4, False)}[words]
+        assert hd.lane_layout("decode_segments", words) == want
+        streams = torch.nn.functional.pad(streams, (0, words - mw))
+        mw = words
+    if case == "speculative_random":
+        S = streams.shape[0]
+        ep = torch.from_numpy(np.stack([
+            rng.integers(0, 32 * mw + 64, S), rng.integers(0, 12, S),
+            rng.integers(0, nseg + 1, S)]).astype(np.int32)).to(dev)
+        nblk = ep[2:3]
+        kw = dict(entry=ep[0:1], phase=ep[1:2], phased=True)
+    args = (streams, maxc, delt, hvp, nblk, samp, nseg, mw)
+    assert torch.equal(hd.decode_segments(*args, **kw),
+                       hd.decode_segments_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("mode", ["420", "422", "444", "gray", "px",
+                                  "px_xt", "misaligned_420",
+                                  "misaligned_gray", "misaligned_px"])
+def test_front_dct_random_frames_equal_twin(dev, mode):
+    """Kernel A against its twin on uniform-random frames (every
+    coefficient nonzero, truncation boundaries dense) in each mode and
+    both orders, and on pixels that start off the kernel's alignment (the
+    wrapper hands it an aligned copy)."""
+    rng = np.random.default_rng(83)
+    c = {k: torch.from_numpy(v).to(dev)
+         for k, v in host_constants(None).items()}
+    consts = (c["m"], c["bias"], c["ql"], c["qc"])
+    samp = {"422": "422", "444": "444"}.get(mode, "420")
+    imgs = torch.from_numpy(rng.integers(0, 256, (3, 48, 64, 3),
+                                         dtype=np.uint8)).to(dev)
+
+    def off_by_one(t):  # a copy of t whose data start one element late
+        flat = torch.empty(t.numel() + 16, dtype=t.dtype, device=dev)
+        return flat[1:1 + t.numel()].view(t.shape).copy_(t)
+    if mode in ("gray", "misaligned_gray"):
+        plane = imgs[..., 0].contiguous()
+        if mode == "misaligned_gray":
+            plane = off_by_one(plane)
+        assert torch.equal(front.front_dct_gray(plane, *consts[:3]),
+                           front.front_dct_gray_plain(plane, *consts[:3]))
+        return
+    if mode in ("px", "px_xt", "misaligned_px"):
+        for sp in ("422", "444"):
+            px = color.mcu_blocks(*color.rgb_to_ycbcr(imgs, sp), sp)
+            if mode == "px_xt":
+                px = px.reshape(-1, 64).T.contiguous()
+            if mode == "misaligned_px":
+                px = off_by_one(px)
+            tr = mode == "px_xt"
+            layout = color.LAYOUTS[sp]
+            assert torch.equal(
+                front.front_dct_px(px, *consts, layout, transposed=tr),
+                front.front_dct_px_plain(px, *consts, layout, transposed=tr))
+        return
+    x = imgs.reshape(3, 48, 192)
+    if mode == "misaligned_420":
+        x = off_by_one(x)
+    for order in ("mcu", "scan"):
+        assert torch.equal(
+            front.front_dct(x, *consts, order=order, sampling=samp),
+            front.front_dct_plain(x, *consts, order=order, sampling=samp))

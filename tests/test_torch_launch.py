@@ -10,6 +10,7 @@ every CUDA call is faked.
 No jax here."""
 import contextlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -182,3 +183,142 @@ def test_offsets_words_asks_the_library(monkeypatch):
     finally:
         fused._offsets_words.cache_clear()
     assert asked == [(2, 3), (1, 1)]
+
+
+@pytest.mark.parametrize("nbytes", [4, 8, 16])
+@pytest.mark.parametrize("offset", [0, 1, 4, 8])
+def test_aligned_copies_only_a_misaligned_tensor(nbytes, offset):
+    """``kernels.aligned`` hands back the tensor itself when its data start
+    on an ``nbytes`` boundary, else a fresh contiguous copy that does."""
+    base = torch.arange(256, dtype=torch.uint8)
+    t = base[offset:offset + 96].view(2, 48)
+    got = kernels.aligned(t, nbytes)
+    assert torch.equal(got, t) and got.is_contiguous()
+    assert got.data_ptr() % nbytes == 0
+    assert (got.data_ptr() == t.data_ptr()) == (t.data_ptr() % nbytes == 0)
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data start one element past a
+    16-byte boundary (the wrappers must not pass it to a kernel as is)."""
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype)
+    skip = next(i for i in range(1, 17)
+                if (flat.data_ptr() + i * t.element_size()) % 16)
+    out = flat[skip:skip + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# kernel A's wrappers: (entry point, its call on (pixels, consts), the
+# alignment its kernel needs, the pixels' shape and dtype)
+_A_MODES = {
+    "420 mcu": ("front_dct", lambda f, x, c: f.front_dct(x, *c), 16,
+                (2, 16, 48), torch.uint8),
+    "420 scan": ("front_dct", lambda f, x, c: f.front_dct(
+        x, *c, order="scan"), 16, (2, 16, 48), torch.uint8),
+    "422 mcu": ("front_dct", lambda f, x, c: f.front_dct(
+        x, *c, sampling="422"), 16, (2, 8, 48), torch.uint8),
+    "444 scan": ("front_dct", lambda f, x, c: f.front_dct(
+        x, *c, order="scan", sampling="444"), 16, (2, 8, 24), torch.uint8),
+    "gray": ("front_dct", lambda f, x, c: f.front_dct_gray(x, *c[:3]), 8,
+             (2, 8, 16), torch.uint8),
+    "px rows": ("front_dct_px", lambda f, x, c: f.front_dct_px(
+        x, *c, (3, 1)), 16, (2, 6, 64), torch.float32),
+    "px transposed": ("front_dct_px", lambda f, x, c: f.front_dct_px(
+        x, *c, (3, 1), transposed=True), 4, (64, 6), torch.float32),
+}
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("mode", list(_A_MODES))
+def test_front_wrappers_hand_kernel_a_aligned_pixels(monkeypatch, mode,
+                                                     misaligned):
+    """Kernel A copies its pixels in 16-byte (gray: 8-byte) pieces: each
+    wrapper's CUDA branch (on CPU tensors here) passes the pixels' own
+    address when it is aligned, else the address of an aligned copy of
+    them, and launches once."""
+    from jpeg_tpu_torch.kernels import front
+    name, call, nbytes, shape, dtype = _A_MODES[mode]
+    launched, copies = [], []
+    real_aligned = kernels.aligned
+
+    def spy(t, n):
+        out = real_aligned(t, n)
+        copies.append((t, n, out))
+        return out
+
+    monkeypatch.setattr(front, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(front, "launch",
+                        lambda kname, device, *args: launched.append(
+                            (kname, args)))
+    monkeypatch.setattr(front, "aligned", spy)
+    x = (torch.arange(int(np.prod(shape))) % 251).to(dtype).reshape(shape)
+    if misaligned:
+        x = _misaligned(x)
+    consts = (torch.zeros(64, 64), torch.zeros(64), torch.ones(64),
+              torch.ones(64))
+    call(front, x, consts)
+    (kname, args), = launched
+    (given, n, passed), = copies
+    assert kname == name and given is x and n == nbytes
+    assert args[0] == passed.data_ptr() and passed.data_ptr() % nbytes == 0
+    assert torch.equal(passed, x)
+    assert (passed.data_ptr() == x.data_ptr()) == (not misaligned
+                                                  or x.data_ptr() % n == 0)
+
+
+@pytest.mark.parametrize("kernel,code", [("decode_segments", 0),
+                                         ("scan_positions", 1)])
+@pytest.mark.parametrize("answer,layout", [(9, (4, True)), (5, (2, True)),
+                                           (3, (1, True)), (8, (4, False))])
+def test_lane_layout_asks_the_source(monkeypatch, kernel, code, answer,
+                                     layout):
+    """``huffdec.lane_layout`` asks ``jt_lane_layout`` of the kernels'
+    source (kernel G: 0, H: 1) and decodes its answer, lanes a CTA x 2 +
+    1 where the rows are staged in shared memory."""
+    from jpeg_tpu_torch.kernels import huffdec
+    asked = []
+
+    class Lib:
+        @staticmethod
+        def jt_lane_layout(words, k):
+            asked.append((words, k))
+            return answer
+
+    monkeypatch.setattr(_build, "library", lambda source: Lib)
+    assert huffdec.lane_layout(kernel, 20000) == layout
+    assert asked == [(20000, code)]
+
+
+@pytest.mark.parametrize("sampling,period,ypm", [
+    ("420", 6, 4), ("422", 4, 2), ("444", 3, 1), ("gray", 1, 1)])
+@pytest.mark.parametrize("mode", ["restart", "entry", "phased"])
+def test_decode_segments_hands_kernel_g_its_mode(monkeypatch, sampling,
+                                                 period, ypm, mode):
+    """Kernel G's wrapper passes entry and phase pointers only in their
+    mode (restart: neither; speculative: the entry, and the phase where
+    phased), the MCU pattern's period and luma blocks, and a fresh output
+    that the kernel covers whole (no zeroing on the host)."""
+    from jpeg_tpu_torch.kernels import huffdec
+    launched = []
+    monkeypatch.setattr(huffdec, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(huffdec, "launch",
+                        lambda name, device, *args: launched.append(
+                            (name, args)))
+    S, mw, nseg = 3, 5, 7
+    streams = torch.zeros((S, mw), dtype=torch.int32)
+    maxc = torch.zeros((64, S), dtype=torch.int32)
+    hvp = torch.zeros((S, 256), dtype=torch.int32)
+    rows = [torch.full((1, S), v, dtype=torch.int32) for v in (4, 9, 2)]
+    nblk, entry, phase = rows
+    kw = {} if mode == "restart" else dict(
+        entry=entry, phase=phase, phased=mode == "phased")
+    zz = huffdec.decode_segments(streams, maxc, maxc.clone(), hvp, nblk,
+                                 sampling, nseg, mw, **kw)
+    (name, args), = launched
+    assert name == "decode_segments" and zz.shape == (S, nseg, 64)
+    assert args[4] == nblk.data_ptr()
+    assert args[5] == (None if mode == "restart" else entry.data_ptr())
+    assert args[6] == (phase.data_ptr() if mode == "phased" else None)
+    assert args[7] == zz.data_ptr()
+    assert args[8:] == (S, mw, nseg, period, ypm)
