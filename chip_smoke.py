@@ -13,9 +13,16 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    with each mode's LUTs), and in the layouts of the 3-scan path: A's
    3-scan order and its gray mode (1920x1280), B and E on the Y and the
    Cb + Cr scans (E adding both into one histogram), F with per-image
-   LUTs, C and D on the 8 Y restart segments of 1920x1088 r17; B and E in
+   LUTs, C on the 8 Y restart segments of 1920x1088 r17; D into a buffer
+   pre-filled with 0xFFFFFFFF (no word past a stream may change; the
+   streams' words compared) there, on a 38400-block Y scan, 4096
+   one-block segments, explicit padding tiles, random 30-bit fields and
+   streams ending on a word boundary; E on random coefficients in all
+   five block patterns, with and without the mask, fresh and
+   accumulating, and E explicit with padding blocks; B and E in
    their explicit modes (the f64 path's K13 and K12 counterparts; B with
-   C and D as K13's whole function) and F + C + D over slot arrays (K18b)
+   C and D as K13's whole function) and F + C + D over slot arrays (K18b;
+   functions ending in D are compared on the streams' words)
    at the shapes of a 4x1920x1280 f64 batch; A's 4:2:2 and 4:4:4 modes
    (both orders), its pixel-block mode (rows and the transposed ``xt``),
    K7 (``dct_attach_pack_segments``: A's pixel mode, B, C, D) and K18a
@@ -117,7 +124,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    main paths' three shapes in turns with its twin and ``torch.cumsum``,
    with the host's cost of C's wrapper and of its parts; every kernel's
    device µs per call (torch.profiler, three profiles) beside its event
-   ms.
+   ms, with the device ops its profiles saw; E's traffic moved by
+   PyTorch's own int16 -> int32 copy beside E and E explicit.  The bounds
+   count the words the streams hold, and D's bytes the values of the
+   non-NULL slots only.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 the JSON verdict.  Inputs are synthetic images (smooth gradients plus hard
@@ -127,6 +137,7 @@ and ``g++``.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -398,18 +409,34 @@ def dht_segments(data: bytes) -> list[bytes]:
     return out
 
 
-def bounds(B: int, H: int, W: int, n_segs: int, seg_words: int):
+def stream_nbytes(totals: torch.Tensor) -> int:
+    """The bytes of the words that the segments' streams hold:
+    ceil(totals / 32) words each (kernel D writes those and no others)."""
+    return int(((totals.to(torch.int64) + 31) // 32).sum()) * 4
+
+
+def place_nbytes(nbits: torch.Tensor, totals: torch.Tensor) -> int:
+    """The bytes kernel D must move on these fields: every nbits byte, the
+    value of each non-NULL slot (a NULL slot's value is not needed), the
+    block offsets and totals, and the stream words."""
+    S, nblk, _ = nbits.shape
+    return (nbits.numel() + 4 * int(torch.count_nonzero(nbits))
+            + 4 * S * nblk + 4 * S + stream_nbytes(totals))
+
+
+def bounds(B: int, H: int, W: int, n_segs: int, d_bytes: int):
     """kernel -> (bound_ms, bound_by): the least time the card could take
     for each kernel's work at this geometry, the larger of its bytes (each
     input read once, each output written once) over the HBM rate and its
-    operations (A: the DCT's 64x64 FMAs per block) over the FP32 rate."""
+    operations (A: the DCT's 64x64 FMAs per block) over the FP32 rate.
+    D's bytes depend on the data: ``place_nbytes`` of its fields."""
     nblocks = B * (H // 16) * (W // 16) * 6
     slots = nblocks * 64
     bytes_ = {
         "front_dct": B * H * W * 3 + slots * 2 + (64 * 64 + 3 * 64) * 4,
         "symbolize_bits": slots * 2 + 4096 + slots * 5 + nblocks * 4,
         "segment_offsets": nblocks * 4 * 2 + B * n_segs * 4,
-        "place": slots * 5 + nblocks * 4 + B * n_segs * seg_words * 4,
+        "place": d_bytes,
         "symbolize_fields": slots * 2 + slots * 4 + B * 4096,
         "attach_pf": slots * 4 + B * 4096 + slots * 5 + nblocks * 4,
     }
@@ -423,14 +450,14 @@ def bounds(B: int, H: int, W: int, n_segs: int, seg_words: int):
     return out
 
 
-def explicit_bounds(S: int, nblk: int, seg_words: int, n_images: int):
+def explicit_bounds(S: int, nblk: int, stream_bytes: int, n_images: int):
     """bound_ms, bound_by of the f64 path's kernels and functions over S
     segments of nblk blocks (all bound by bytes: no arithmetic to speak
     of).  Inputs: zz int16, dc_diff and is_luma int32 per block, the LUT;
-    K18b reads three int32 slot arrays; K13 and K18b write the words and
-    totals."""
+    K18b reads three int32 slot arrays; K13 and K18b write the streams'
+    words (``stream_bytes``) and totals."""
     blocks, slots = S * nblk, S * nblk * 64
-    words = S * seg_words * 4 + S * 4
+    words = stream_bytes + S * 4
     nbytes = {
         "symbolize_bits_explicit": slots * 2 + blocks * 8 + 4096
         + slots * 5 + blocks * 4,
@@ -443,12 +470,14 @@ def explicit_bounds(S: int, nblk: int, seg_words: int, n_images: int):
             for k, v in nbytes.items()}
 
 
-def sampling_bounds(B: int, H: int, W: int, sampling: str, seg_words: int):
+def sampling_bounds(B: int, H: int, W: int, sampling: str,
+                    stream_bytes: int):
     """bound_ms, bound_by of A's color mode at ``sampling`` and of its
     pixel mode, K7 and K18a over that batch's blocks (one segment per
     image): the larger of their bytes over the HBM rate and the DCT's
     64x64 FMAs per block over the FP32 rate.  A px and K18a read f32
-    pixel blocks; K18a writes int32 indices, K7 the words and totals."""
+    pixel blocks; K18a writes int32 indices, K7 the streams' words
+    (``stream_bytes``) and totals."""
     mcu_w, mcu_h, ypm = SAMPLING_GEOMETRY[sampling]
     nblocks = B * (H // mcu_h) * (W // mcu_w) * (ypm + 2)
     slots = nblocks * 64
@@ -457,7 +486,7 @@ def sampling_bounds(B: int, H: int, W: int, sampling: str, seg_words: int):
         f"front_dct {LABEL[sampling]}": B * H * W * 3 + slots * 2 + consts,
         "front_dct_px": slots * 4 + slots * 2 + consts,
         "dct_attach_pack_segments": slots * 4 + consts + 4096
-        + B * seg_words * 4 + B * 4,
+        + stream_bytes + B * 4,
         "dct_index_xt": slots * 4 + consts + slots * 4,
     }
     t_ops = nblocks * 64 * 64 * 2 / FP32_FLOP_PER_S * 1e3
@@ -467,6 +496,51 @@ def sampling_bounds(B: int, H: int, W: int, sampling: str, seg_words: int):
         out[name] = ((t_ops, "operations") if t_ops > t_bytes
                      else (t_bytes, "bytes"))
     return out
+
+
+def in_stream(words: torch.Tensor, totals: torch.Tensor) -> torch.Tensor:
+    """[S, seg_words] bool: the words of each segment's stream, words
+    [0, ceil(totals / 32)) (the words that kernel D's contract defines)."""
+    n = (totals.to(torch.int64) + 31) // 32
+    return (torch.arange(words.shape[-1], device=words.device)[None]
+            < n[:, None])
+
+
+def stream_words(words: torch.Tensor, totals: torch.Tensor) -> torch.Tensor:
+    """[S, seg_words] words as int32, every word past each segment's
+    stream set to 0."""
+    return torch.where(in_stream(words, totals), words.view(torch.int32), 0)
+
+
+def on_streams(fn):
+    """``fn`` giving (words, totals) -> its (stream words, totals)."""
+    def call():
+        words, totals = fn()
+        return stream_words(words, totals), totals
+    return call
+
+
+def place_checked(value, nbits, offs, totals, seg_words: int):
+    """Kernel D into a buffer pre-filled with 0xFFFFFFFF, so that a word it
+    forgets shows: raises if it wrote a word past a stream; returns (the
+    stream words, totals)."""
+    out = torch.full((value.shape[0], seg_words), -1, dtype=torch.int32,
+                     device=value.device)
+    fused.place(value, nbits, offs, totals, seg_words,
+                out=out.view(torch.uint32))
+    keep = in_stream(out, totals)
+    past = int((out[~keep] != -1).sum())
+    if past:
+        raise AssertionError(f"kernel place wrote {past} words past the "
+                             f"streams")
+    return torch.where(keep, out, 0), totals
+
+
+def place_plain_streams(value, nbits, offs, totals, seg_words: int):
+    """``place_plain``'s stream words and the totals, as ``place_checked``
+    gives them."""
+    return (stream_words(fused.place_plain(value, nbits, offs, seg_words),
+                         totals), totals)
 
 
 def dynamic_split(e: FastBatchEncoder, xd: torch.Tensor,
@@ -790,19 +864,23 @@ def device_profile(fn, runs: int) -> tuple[dict[str, float], float]:
     return per_call, 1.0 - busy / wall_us
 
 
-def device_us(fn, runs: int, attempts: int = 3) -> tuple[float, list]:
+def device_us(fn, runs: int,
+              attempts: int = 3) -> tuple[float, list, list]:
     """Device µs per call of ``fn`` by torch.profiler: the median of
-    ``attempts`` profiles, and every reading (printed beside it, so that
-    a profile that missed activity records shows)."""
-    readings = [sum(device_profile(fn, runs)[0].values())
-                for _ in range(attempts)]
-    return statistics.median(readings), readings
+    ``attempts`` profiles, every reading (printed beside it, so that a
+    profile that missed activity records shows), and the names of the
+    device ops the profiles saw."""
+    profiles = [device_profile(fn, runs)[0] for _ in range(attempts)]
+    readings = [sum(p.values()) for p in profiles]
+    names = sorted(set().union(*profiles))
+    return statistics.median(readings), readings, names
 
 
-def device_text(us: tuple[float, list]) -> str:
+def device_text(us: tuple[float, list, list]) -> str:
     """``device_us``' result as printed."""
     return (f"device {us[0]:.2f} µs per call (torch.profiler, median of "
-            + ", ".join(f"{r:.2f}" for r in us[1]) + ")")
+            + ", ".join(f"{r:.2f}" for r in us[1]) + "; device ops: "
+            + ", ".join(us[2]) + ")")
 
 
 def scan_kernel_times(x: torch.Tensor, consts, lut: torch.Tensor,
@@ -828,13 +906,15 @@ def scan_kernel_times(x: torch.Tensor, consts, lut: torch.Tensor,
         "K14 (F, one LUT)": (
             lambda: fused.attach_pf(pf, lut1),
             lambda: fused.attach_pf_plain(pf, lut1),
-            slots * 4 + 4096 + slots * 5 + n * 4),
+            slots * 4 + 4096 + slots * 5 + n * 4, lambda out: out),
+        # C + D read what D reads, with C's bits in place of the offsets
         "K15 (C + D)": (
             lambda: kpack.pack_segments(value, nbits, 1, seg_rows, bits),
-            pack_plain, slots * 5 + n * 4 + seg_rows * 128 * 4 + 4),
+            pack_plain, place_nbytes(nbits, bits.sum(-1, dtype=torch.int32)),
+            lambda out: (stream_words(*out), out[1])),
     }
-    for label, (kernel, plain, nbytes) in cases.items():
-        err = max_abs_err(kernel(), plain())
+    for label, (kernel, plain, nbytes, narrow) in cases.items():
+        err = max_abs_err(narrow(kernel()), narrow(plain()))
         if err:
             raise AssertionError(f"{label} disagrees with its plain twin: "
                                  f"max_abs_err {err}")
@@ -1744,6 +1824,117 @@ def spec_timings(spec_runs, scases, spec_calls, spec_bounds, spec_shapes,
           f"{time.perf_counter() - t_spec:.1f} s")
 
 
+def random_coefs(rng: np.random.Generator, S: int,
+                 nblk: int) -> np.ndarray:
+    """[S, nblk, 64] int16 zig-zag coefficients reaching every branch of
+    the symbolizer: blocks all zero, sparse (zero runs past 16: ZRLs),
+    dense (a nonzero slot 63: no EOB), DCs over their whole range."""
+    density = rng.choice([0.0, 0.03, 0.3, 1.0], size=(S, nblk, 1))
+    ac = rng.integers(-2047, 2048, (S, nblk, 64))
+    zz = np.where(rng.random((S, nblk, 64)) < density, ac, 0)
+    zz[..., 0] = rng.integers(-2048, 2048, (S, nblk))
+    return zz.astype(np.int16)
+
+
+# E's block patterns on random coefficients: (layout, blocks per segment),
+# segments not whole groups of four blocks where the pattern allows; each
+# of FIELDS_IMAGES images is FIELDS_SEGS segments
+FIELDS_LAYOUTS = [(LAYOUTS["420"], 66), (LAYOUTS["422"], 68),
+                  (LAYOUTS["444"], 69), (SCAN_Y, 77), (SCAN_CHROMA, 77)]
+FIELDS_IMAGES, FIELDS_SEGS = 2, 3
+
+
+def fields_cases(dev, rng: np.random.Generator,
+                 layouts=FIELDS_LAYOUTS) -> list:
+    """Kernel E's checks on random coefficients in every block pattern of
+    ``layouts``, without and with the mask, fresh and accumulating into
+    random rows: (label, kernel, plain)."""
+    out = []
+    n, segs = FIELDS_IMAGES, FIELDS_SEGS
+    for layout, nblk in layouts:
+        coef = torch.from_numpy(random_coefs(rng, n * segs, nblk)).to(dev)
+        mask = torch.from_numpy(
+            (rng.random(segs * nblk) < 0.5).astype(np.uint8)).to(dev)
+        rows = torch.from_numpy(
+            rng.integers(0, 1000, (n, 1024)).astype(np.int32)).to(dev)
+        for m in (None, mask):
+            for h in (None, rows):
+                def run(fn, c=coef, m=m, h=h, layout=layout):
+                    return lambda: fn(c, n, m, layout,
+                                      None if h is None else h.clone())
+                out.append((
+                    f"random coefficients, layout {tuple(layout)}, {segs} "
+                    f"segments of {nblk} blocks an image"
+                    + (", mask" if m is not None else "")
+                    + (", accumulating" if h is not None else ""),
+                    run(fused.symbolize_fields),
+                    run(fused.symbolize_fields_plain)))
+    return out
+
+
+# the explicit-mode inputs of random_explicit: segments, blocks, images
+EXPLICIT_SHAPE, EXPLICIT_IMAGES = (6, 300), 3
+
+
+def explicit_random(rng: np.random.Generator, dev):
+    """Random explicit-mode inputs (zz int16, dc_diff, is_luma int32) with
+    padding blocks: two whole tiles of kernel D's 64 blocks inside every
+    segment, each segment's last 50 blocks, and all of segment 1."""
+    S, nblk = EXPLICIT_SHAPE
+    zz = random_coefs(rng, S, nblk)
+    dcd = rng.integers(-4095, 4096, (S, nblk)).astype(np.int32)
+    dcd[0, :2] = [4095, -4095]
+    isl = rng.integers(0, 2, (S, nblk)).astype(np.int32)
+    isl[:, 64:192] = -1
+    isl[:, -50:] = -1
+    isl[1] = -1
+    return tuple(torch.from_numpy(a).to(dev) for a in (zz, dcd, isl))
+
+
+def place_cases(fields, fields_r, gray_coef, lut, explicit,
+                rng: np.random.Generator) -> list:
+    """Kernel D's edge shapes: (label, (value, nbits, offs, totals,
+    seg_words))."""
+    cases = []
+
+    def case(label, value, nbits, bits):
+        offs, totals = fused.segment_offsets_plain(bits)
+        seg_words = kpack.rows_per_segment(value.shape[1] * 64) * 128
+        cases.append((label, (value, nbits, offs, totals, seg_words)))
+
+    case("3-scan Y, 8 restart segments of 4080 blocks (1920x1088 r17)",
+         *fields_r)
+    case("one segment of 38400 blocks (a 1920x1280 Y scan)",
+         *fused.symbolize_bits_plain(gray_coef, lut, SCAN_Y))
+    n1 = 4096
+    case(f"{n1} segments of one block",
+         fields[0].reshape(-1, 1, 64)[:n1], fields[1].reshape(-1, 1, 64)[:n1],
+         fields[2].reshape(-1, 1)[:n1])
+    case(f"explicit padding blocks (no bits): {tuple(explicit[0].shape[:2])}",
+         *fused.symbolize_bits_explicit_plain(*explicit, lut))
+    S, nblk = 3, 500
+    nb = rng.integers(0, 31, (S, nblk, 64))
+    nb[rng.random((S, nblk, 64)) < 0.5] = 0
+    val = rng.integers(0, 1 << 30, (S, nblk, 64)) & ((1 << nb) - 1)
+    # the same, with the last two slots making every stream whole words
+    nb2, val2 = nb.copy(), val.copy()
+    nb2[:, -1, 62:] = 0
+    pad = -nb2.sum(axis=(1, 2)) % 32
+    nb2[:, -1, 62], nb2[:, -1, 63] = pad // 2, pad - pad // 2
+    val2[:, -1, 62:] = (rng.integers(0, 1 << 16, (S, 2))
+                        & ((1 << nb2[:, -1, 62:]) - 1))
+    assert not (nb2.sum(axis=(1, 2)) % 32).any()
+    dev = fields[0].device
+    for label, n, v in (("random fields of 0-30 bits", nb, val),
+                        ("random fields, streams ending on a word boundary",
+                         nb2, val2)):
+        nbits = torch.from_numpy(n.astype(np.uint8)).to(dev)
+        case(label, torch.from_numpy(v.astype(np.int32)).to(dev).view(
+            torch.uint32), nbits, nbits.to(torch.int32).sum(
+                -1, dtype=torch.int32))
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1799,7 +1990,7 @@ def main() -> int:
                                                               enc._lut)),
         "segment_offsets": (lambda: fused.segment_offsets(fields[2]),
                             lambda: fused.segment_offsets_plain(fields[2])),
-        "place": (lambda: fused.place(fields[0], fields[1], offs[0],
+        "place": (lambda: fused.place(fields[0], fields[1], *offs,
                                       seg_words),
                   lambda: fused.place_plain(fields[0], fields[1], offs[0],
                                             seg_words)),
@@ -1835,7 +2026,8 @@ def main() -> int:
                                  order="scan")[:136 * 240].view(8, 4080, 64)
     fields_r = fused.symbolize_bits_plain(cy_r, enc._lut, SCAN_Y)
     offs_r = fused.segment_offsets_plain(fields_r[2])
-    words_r = kpack.rows_per_segment(4080 * 64) * 128
+    # random explicit-mode inputs with padding blocks, for D and E
+    ex_rand = explicit_random(np.random.default_rng(args.seed + 11), dev)
     more_checks = {
         "front_dct": [
             ("3-scan order", lambda: front.front_dct(x, *consts,
@@ -1856,7 +2048,8 @@ def main() -> int:
              lambda: fused.symbolize_fields_plain(coef, B, mask)),
             ("3-scan Y, then Cb + Cr into the same histogram rows",
              lambda: scan_fields(fused.symbolize_fields),
-             lambda: scan_fields(fused.symbolize_fields_plain))],
+             lambda: scan_fields(fused.symbolize_fields_plain)),
+            *fields_cases(dev, np.random.default_rng(args.seed + 10))],
         "attach_pf": [
             ("dynamic-sampled LUTs",
              lambda: fused.attach_pf(pf, luts["dynamic-sampled"]),
@@ -1869,12 +2062,20 @@ def main() -> int:
              lambda: fused.segment_offsets(fields_r[2]),
              lambda: fused.segment_offsets_plain(fields_r[2]))],
         "place": [
-            ("3-scan Y, 8 restart segments of 1920x1088",
-             lambda: fused.place(fields_r[0], fields_r[1], offs_r[0],
-                                 words_r),
-             lambda: fused.place_plain(fields_r[0], fields_r[1], offs_r[0],
-                                       words_r))],
+            (label, lambda a=a: place_checked(*a),
+             lambda a=a: place_plain_streams(*a))
+            for label, a in place_cases(
+                fields, fields_r, front.front_dct_gray_plain(
+                    plane, *consts[:3]), enc._lut, ex_rand,
+                np.random.default_rng(args.seed + 9))],
     }
+    # D's words are compared on the streams only, and D alone writes into
+    # a pre-filled buffer (its contract: the words past a stream are not
+    # written); the kernel's first check, then the functions ending in D
+    check_calls = {"place": (
+        lambda: place_checked(fields[0], fields[1], *offs, seg_words),
+        lambda: place_plain_streams(fields[0], fields[1], *offs,
+                                    seg_words))}
     # the f64 path's kernels at the shapes of a 4x1920x1280 batch: the
     # exact analysis (torch ops) gives zz, dc_diff and is_luma; the inputs
     # come from a third generator
@@ -1903,8 +2104,18 @@ def main() -> int:
                enc._lut, seq, dcd, isl, s4, seg_rows4),
            lambda: fused.pack_plain(*fused.symbolize_bits_explicit_plain(
                seq, dcd, isl, enc._lut), seg_rows4))
+    check_calls["attach_pack_segments"] = tuple(
+        map(on_streams, calls["attach_pack_segments"]))
+    more_checks["symbolize_fields_explicit"] = [(
+        f"random coefficients, padding blocks, "
+        f"{tuple(ex_rand[0].shape[:2])}, {EXPLICIT_IMAGES} images",
+        lambda: fused.symbolize_segments(*ex_rand, len(ex_rand[0]),
+                                         EXPLICIT_IMAGES),
+        lambda: fused.symbolize_segments_plain(*ex_rand, len(ex_rand[0]),
+                                               EXPLICIT_IMAGES))]
     more_checks["symbolize_bits_explicit"] = [
-        ("with C and D: K13's analyze_attach_pack_segments", *k13)]
+        ("with C and D: K13's analyze_attach_pack_segments",
+         *map(on_streams, k13))]
     # A's 4:2:2 and 4:4:4 modes, its pixel-block mode, K7 and K18a at the
     # shapes of a 4x1920x1280 batch of each sampling (one segment per
     # image); the inputs come from a fourth generator
@@ -1951,8 +2162,11 @@ def main() -> int:
          px_mode("444", plain=True, transposed=True)),
         ("4:2:2 layout", px_mode("422"), px_mode("422", plain=True))]
     calls["dct_attach_pack_segments"] = (k7("444"), k7("444", plain=True))
+    check_calls["dct_attach_pack_segments"] = tuple(
+        map(on_streams, calls["dct_attach_pack_segments"]))
     more_checks["dct_attach_pack_segments"] = [
-        ("4:2:2 layout", k7("422"), k7("422", plain=True))]
+        ("4:2:2 layout", on_streams(k7("422")),
+         on_streams(k7("422", plain=True)))]
     calls["dct_index_xt"] = (k18a("444"), k18a("444", plain=True))
     more_checks["dct_index_xt"] = [
         ("4:2:2 layout", k18a("422"), k18a("422", plain=True))]
@@ -2006,7 +2220,8 @@ def main() -> int:
     }
     errs = {}
     for name, (kernel, plain) in calls.items():
-        checks = [("", kernel, plain)] + more_checks.get(name, [])
+        checks = ([("", *check_calls.get(name, (kernel, plain)))]
+                  + more_checks.get(name, []))
         errs[name] = 0
         for label, k_fn, p_fn in checks:
             got, want = k_fn(), p_fn()
@@ -2273,12 +2488,26 @@ def main() -> int:
               + (f", one PyTorch call {lib:.4f} ms ({first[1]:.4f}, "
                  f"{second[1]:.4f})" if lib is not None else "")
               + f"; {device_text(dus)}, every device op of the call")
+    # E's traffic (2 bytes in, 4 out a slot) moved by PyTorch's own int16
+    # -> int32 copy of the same coefficients: what this card gives such a
+    # write-heavy stream (a yardstick; the port never calls it)
+    for name, src in (("symbolize_fields", coef),
+                      ("symbolize_fields_explicit", seq)):
+        dst = torch.empty(src.shape, dtype=torch.int32, device=dev)
+        copy = functools.partial(dst.copy_, src)
+        print(f"timing E's traffic at {tuple(src.shape)} on [{card}]: "
+              f"PyTorch's int16 -> int32 copy_ {cuda_ms(copy, args.runs):.4f}"
+              f" ms, {device_text(device_us(copy, args.runs))}; kernel "
+              f"{name} {times[name][0]:.4f} ms, device "
+              f"{times[name][3]:.2f} µs")
     p0, k0, k1, p1 = (cuda_ms(f, args.runs)
                       for f in (k13[1], k13[0], k13[0], k13[1]))
-    bound = bounds(B, H, W, enc.n_segs, seg_words)
-    bound.update(explicit_bounds(s4, nblk4, seg_rows4 * 128, b4))
+    # the bounds count the words the streams hold, and D's bytes its data
+    bound = bounds(B, H, W, enc.n_segs, place_nbytes(fields[1], offs[1]))
+    bound.update(explicit_bounds(s4, nblk4, stream_nbytes(k13[0]()[1]), b4))
     for sp in ("422", "444"):  # A px, K7 and K18a: the 4:4:4 shapes
-        bound.update(sampling_bounds(b5, h5, w5, sp, seg_rows5[sp] * 128))
+        bound.update(sampling_bounds(b5, h5, w5, sp,
+                                     stream_nbytes(k7(sp)()[1])))
     print(f"timing K13 (B explicit + C + D: analyze_attach_pack_segments) "
           f"at {b4}x{h4}x{w4} f64 on [{card}]: {(k0 + k1) / 2:.4f} ms "
           f"({k0:.4f}, {k1:.4f}), plain {(p0 + p1) / 2:.4f} ms ({p0:.4f}, "

@@ -43,12 +43,12 @@ SIGNATURES = {
                                 [_VOID] * 7 + [_INT] * 2 + [_VOID]),
     "segment_offsets": ("segment_offsets", "jt_segment_offsets",
                         [_VOID] * 4 + [_INT] * 2 + [_VOID]),
-    "place": ("place", "jt_place", [_VOID] * 4 + [_INT] * 3 + [_VOID]),
+    "place": ("place", "jt_place", [_VOID] * 5 + [_INT] * 3 + [_VOID]),
     "symbolize_fields": ("symbolize_fields", "jt_symbolize_fields",
-                         [_VOID] * 4 + [_INT] * 6 + [_VOID]),
+                         [_VOID] * 5 + [_INT] * 6 + [_VOID]),
     "symbolize_fields_explicit": ("symbolize_fields",
                                   "jt_symbolize_fields_explicit",
-                                  [_VOID] * 5 + [_INT] * 3 + [_VOID]),
+                                  [_VOID] * 6 + [_INT] * 3 + [_VOID]),
     "attach_pf": ("attach_pf", "jt_attach_pf",
                   [_VOID] * 5 + [_INT] * 3 + [_VOID]),
     "decode_segments": ("huffdec", "jt_decode_segments",

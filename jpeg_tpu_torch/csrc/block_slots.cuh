@@ -9,10 +9,16 @@
 // that was slot 63.  Every other slot gets kNullIndex and no bits.  The
 // combined-LUT index of a slot is sym | is_dc << 8 | is_luma << 9.
 //
-// Lane l holds slots 2l and 2l+1.  The DC difference reads the previous
-// same-component DC straight from the input by index (no carry crosses
-// blocks); the "last nonzero AC before me" that drives runs, ZRL and EOB
-// is one warp max-scan.
+// Two layouts of a block over lanes.  block_slots / block_slots_explicit
+// (kernel B): a warp a block, lane l holds slots 2l and 2l+1; the DC
+// difference reads the previous same-component DC straight from the input
+// by index (no carry crosses blocks); the "last nonzero AC before me" that
+// drives runs, ZRL and EOB is one warp max-scan.  slots8_fields (kernel
+// E): eight lanes a block, lane q of the eight holds slots 4q..4q+3 and
+// 32+4q..32+4q+3 (so that each half of a block is 8 lanes' contiguous
+// pieces), a warp four blocks; the max-scan runs over the block's eight
+// lanes and then through each lane's slots; the caller supplies the DC
+// difference.
 //
 // The explicit mode (block_slots_explicit) takes each block's DC
 // difference and luma flag from arrays instead of deriving them from a
@@ -142,6 +148,61 @@ __device__ __forceinline__ SlotPair block_slots_explicit(
   const int v0 = lane == 0 ? dc_diff[gb] : (int)(int16_t)(pair & 0xffffu);
   const int v1 = (int)(int16_t)(pair >> 16);
   return slots_of(v0, v1, lane, flag == 1);
+}
+
+// The slot of a block that lane q of its eight lanes holds as its i-th
+// (slots8_fields): 4q..4q+3, then 32+4q..32+4q+3, so that the eight lanes'
+// first (second) four slots are the block's first (second) 32 in order.
+__device__ __forceinline__ int slot8(int q, int i) {
+  return (i < 4 ? 0 : 28) + 4 * q + i;
+}
+
+// The packed fields (idx | extra_n << 10 | extra << 14) of one lane's
+// eight slots slot8(q, 0..7) of a block whose eight lanes are the aligned
+// lanes 8 * (lane / 8) .. + 7; v holds the slots' values, slot 0's
+// already the DC difference.  The last nonzero AC slot before each slot
+// comes from one max-scan over the eight lanes of both halves at once
+// (halfwords of one word).  All 32 lanes of the warp must call it
+// together; where no block of the warp has a symbol past slot 31, the
+// second halves' slots are NULL without their slot logic.
+__device__ __forceinline__ void slots8_fields(const int (&v)[8], int q,
+                                              int luma, int (&pf)[8]) {
+  const unsigned full = 0xffffffffu;
+  unsigned lo = 0, hi = 0;  // last nonzero AC slot of each half here
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (slot8(q, i) > 0 && v[i] != 0) lo = slot8(q, i);
+    if (v[i + 4] != 0) hi = slot8(q, i + 4);
+  }
+  unsigned incl = lo | (hi << 16);
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1) {
+    const unsigned o = __shfl_up_sync(full, incl, off, 8);
+    if (q >= off) incl = __vmaxu2(incl, o);
+  }
+  unsigned excl = __shfl_up_sync(full, incl, 1, 8);
+  if (q == 0) excl = 0;
+  const unsigned tot = __shfl_sync(full, incl, 7, 8);
+  const int tot_lo = (int)(tot & 0xffffu);
+  const int last = max(tot_lo, (int)(tot >> 16));
+  int prev[2] = {(int)(excl & 0xffffu),
+                 max(tot_lo, (int)(excl >> 16))};
+  // the second half holds a symbol only where a nonzero AC or the EOB
+  // lies there: skip its slot logic where none of the warp's blocks has one
+  const int halves = __any_sync(full, last >= 31) ? 2 : 1;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int k = slot8(q, i);
+    int& p = prev[i >> 2];
+    if ((i >> 2) < halves) {
+      int idx, ex, en;
+      slot_fields(k, v[i], p, last, luma, &idx, &ex, &en);
+      pf[i] = idx | (en << 10) | (ex << 14);
+      if (k > 0 && v[i] != 0) p = k;
+    } else {
+      pf[i] = kNullIndex;
+    }
+  }
 }
 
 }  // namespace jt

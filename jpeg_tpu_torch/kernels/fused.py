@@ -53,7 +53,7 @@ from .. import _build
 from ..ops import dct, symbols
 from ..ops.color import MCU_420, Layout
 from ..ops.pack import max_words_for_slots
-from . import check_tensor, front, launch, on_cpu, stream_handle
+from . import aligned, check_tensor, front, launch, on_cpu, stream_handle
 from .lut import NULL_INDEX
 
 # -- B: symbolize_bits -------------------------------------------------------
@@ -162,9 +162,28 @@ def segment_offsets_plain(bits: torch.Tensor):
     return ends - bits, ends[:, -1].contiguous()
 
 
-# kernel C's workspace by (device, stream): its counters and a status word
-# per tile, zeroed once here and zeroed again by every launch's last CTA
+# the workspaces of kernels C (its counters and a status word per tile)
+# and E (a histogram row and a counter per image) by (device, stream):
+# zeroed once here, and zeroed again by every launch's last CTA(s)
 _offsets_work: dict = {}
+_hist_work: dict = {}
+
+
+def _workspace(store: dict, device: torch.device, numel: int,
+               dtype: torch.dtype) -> int:
+    """The address of a zeroed workspace of at least ``numel`` elements in
+    ``store`` for ``device`` and PyTorch's current stream there."""
+    key = (device.index, stream_handle(device.index))
+    work = store.get(key)
+    if work is None or work.numel() < numel:
+        work = torch.zeros(max(numel, 1024), dtype=dtype, device=device)
+        store[key] = work
+    return work.data_ptr()
+
+
+def _offsets_workspace(device: torch.device, words: int) -> int:
+    """Kernel C's workspace: int64 counters and status words."""
+    return _workspace(_offsets_work, device, words, torch.int64)
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,18 +192,6 @@ def _offsets_words(S: int, nblk: int) -> int:
     sizes it."""
     return _build.library("segment_offsets").jt_segment_offsets_words(
         S, nblk)
-
-
-def _offsets_workspace(device: torch.device, words: int) -> int:
-    """The address of a zeroed int64 workspace of at least ``words`` on
-    ``device`` for PyTorch's current stream there."""
-    key = (device.index, stream_handle(device.index))
-    work = _offsets_work.get(key)
-    if work is None or work.numel() < words:
-        work = torch.zeros(max(words, 1024), dtype=torch.int64,
-                           device=device)
-        _offsets_work[key] = work
-    return work.data_ptr()
 
 
 def segment_offsets(bits: torch.Tensor):
@@ -234,30 +241,48 @@ def place_plain(value: torch.Tensor, nbits: torch.Tensor,
 
 
 def place(value: torch.Tensor, nbits: torch.Tensor, offs: torch.Tensor,
-          seg_words: int) -> torch.Tensor:
+          totals: torch.Tensor, seg_words: int,
+          out: torch.Tensor | None = None) -> torch.Tensor:
     """Fields at their bit offsets -> words uint32 [S, seg_words].
 
-    ``value``/``nbits`` are ``symbolize_bits``' fields, ``offs`` the block
-    offsets of ``segment_offsets``.  Bit i of a segment's stream is bit
-    ``31 - (i & 31)`` of word ``i >> 5``; the words past the stream are 0.
+    ``value``/``nbits`` are ``symbolize_bits``' fields (value < 2^nbits),
+    ``offs`` and ``totals`` the block offsets and segment totals of
+    ``segment_offsets``.  Bit i of a segment's stream is bit ``31 - (i &
+    31)`` of word ``i >> 5``.  The words ``[0, ceil(totals[s] / 32))`` of
+    segment ``s`` hold its stream, the bits after ``totals[s]`` 0; the
+    kernel does not write the words past them (the plain twin gives 0s
+    there), and no consumer reads them.  ``out``, a contiguous [S,
+    seg_words] uint32 buffer on the card, takes the words in place of a
+    fresh one (the checks pre-fill it to show the words left alone).
     """
-    if on_cpu(value, nbits, offs):
-        return place_plain(value, nbits, offs, seg_words)
+    if on_cpu(value, nbits, offs, totals):
+        words = place_plain(value, nbits, offs, seg_words)
+        return words if out is None else out.copy_(words)
     S, nblk, _ = value.shape
     check_tensor("value", value, torch.uint32, (S, nblk, 64))
     check_tensor("nbits", nbits, torch.uint8, (S, nblk, 64))
     check_tensor("offs", offs, torch.int32, (S, nblk))
-    # the kernel's atomics are unchecked: the buffer must hold the worst
-    # case of every slot, and bit offsets must fit int32
+    check_tensor("totals", totals, torch.int32, (S,))
+    # the buffer must hold the worst case of every slot (so no stream runs
+    # past its segment's words), and bit offsets must fit int32
     need = max_words_for_slots(nblk * 64)
     if seg_words < need or seg_words * 32 >= 2 ** 31:
         raise ValueError(f"place: seg_words={seg_words} must be in "
                          f"[{need}, 2^26) for {nblk} blocks per segment")
-    words = torch.empty((S, seg_words), dtype=torch.uint32,
-                        device=value.device)
+    if out is None:
+        out = torch.empty((S, seg_words), dtype=torch.uint32,
+                          device=value.device)
+    else:
+        check_tensor("out", out, torch.uint32, (S, seg_words))
+        if out.device != value.device or out.data_ptr() % 16:
+            raise ValueError("place: out must lie 16-byte aligned on the "
+                             "fields' device")
+    # 16-byte loads (a copy where the data start off that boundary)
+    value, nbits = aligned(value, 16), aligned(nbits, 16)
     launch("place", value.device, value.data_ptr(), nbits.data_ptr(),
-           offs.data_ptr(), words.data_ptr(), S, nblk, seg_words)
-    return words
+           offs.data_ptr(), totals.data_ptr(), out.data_ptr(), S, nblk,
+           seg_words)
+    return out
 
 
 # -- E: symbolize_fields -----------------------------------------------------
@@ -314,9 +339,10 @@ def symbolize_fields(coef: torch.Tensor, n_images: int,
     image], in block order) is non-zero.  NULL slots are not counted, so
     bin 1023 is 0.  Each image is ``S / n_images`` consecutive segments of
     the block pattern ``layout``, and each segment restarts the DC
-    prediction.  Given ``hist``, the counts are added to it in place (a
-    3-scan image's Y scan and its Cb + Cr scans, whose bins are disjoint,
-    count into one row) and it is returned.
+    prediction.  Given ``hist`` (on the card: 16-byte aligned), the counts
+    are added to it in place (a 3-scan image's Y scan and its Cb + Cr
+    scans, whose bins are disjoint, count into one row) and it is
+    returned.
     """
     tensors = [coef] + [t for t in (mask, hist) if t is not None]
     if on_cpu(*tensors):
@@ -330,17 +356,26 @@ def symbolize_fields(coef: torch.Tensor, n_images: int,
     if mask is not None:
         check_tensor("mask", mask, torch.uint8, (S // n_images * nblk,))
     dev = coef.device
-    pf = torch.empty((S, nblk, 64), dtype=torch.int32, device=dev)
     accumulate = hist is not None
     if accumulate:
         check_tensor("hist", hist, torch.int32, (n_images, 1024))
+        if hist.data_ptr() % 16:
+            raise ValueError("symbolize_fields: hist must start on a "
+                             "16-byte boundary")
     else:
         hist = torch.empty((n_images, 1024), dtype=torch.int32, device=dev)
+    pf = torch.empty((S, nblk, 64), dtype=torch.int32, device=dev)
+    coef = aligned(coef, 8)  # 8-byte loads
     launch("symbolize_fields", dev, coef.data_ptr(),
            None if mask is None else mask.data_ptr(), pf.data_ptr(),
-           hist.data_ptr(), n_images, S // n_images, nblk, *layout,
-           int(accumulate))
+           hist.data_ptr(), _hist_workspace(dev, n_images), n_images,
+           S // n_images, nblk, *layout, int(accumulate))
     return pf, hist
+
+
+def _hist_workspace(device: torch.device, n_images: int) -> int:
+    """Kernel E's workspace: a histogram row and a counter per image."""
+    return _workspace(_hist_work, device, n_images * 1025, torch.int32)
 
 
 # -- F: attach_pf ------------------------------------------------------------
@@ -390,7 +425,7 @@ def _pack(value, nbits, bits, n_segments: int, seg_rows: int):
         raise ValueError(f"n_segments={n_segments} != leading dim "
                          f"{value.shape[0]}")
     offs, totals = segment_offsets(bits)
-    return place(value, nbits, offs, seg_rows * 128), totals
+    return place(value, nbits, offs, totals, seg_rows * 128), totals
 
 
 def pack_plain(value, nbits, bits, seg_rows: int):
@@ -448,9 +483,11 @@ def symbolize_segments(zz: torch.Tensor, dc_diff: torch.Tensor,
     dev = zz.device
     pf = torch.empty((S, nblk, 64), dtype=torch.int32, device=dev)
     hist = torch.empty((n_images, 1024), dtype=torch.int32, device=dev)
+    zz = aligned(zz, 8)  # 8-byte loads
     launch("symbolize_fields_explicit", dev, zz.data_ptr(),
            dc_diff.data_ptr(), is_luma.data_ptr(), pf.data_ptr(),
-           hist.data_ptr(), n_images, S // n_images, nblk)
+           hist.data_ptr(), _hist_workspace(dev, n_images), n_images,
+           S // n_images, nblk)
     return pf, hist
 
 

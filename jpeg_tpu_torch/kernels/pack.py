@@ -5,7 +5,7 @@ big-endian word streams.  ``jpeg_tpu`` does it with a per-block local pack,
 bit shift and lane rotate into [2, 128]-word windows (``block_windows_t``
 -> ``_pack_kernel_t``), then an XLA row scatter-add.  Here the same
 function is kernel C (``segment_offsets``: the block bit offsets and the
-segment totals) then kernel D (``place``: every field ORed into its words);
+segment totals) then kernel D (``place``: each stream word written once);
 summing each block's 64 slot lengths before C is glue, skipped where the
 caller already has B's or F's ``bits``.  No tile padding: a segment may
 hold any number of blocks.
@@ -39,4 +39,4 @@ def pack_segments(value: torch.Tensor, nbits: torch.Tensor, n_segments: int,
     if bits is None:
         bits = nbits.sum(dim=-1, dtype=torch.int32)
     offs, totals = fused.segment_offsets(bits)
-    return fused.place(value, nbits, offs, seg_rows * 128), totals
+    return fused.place(value, nbits, offs, totals, seg_rows * 128), totals

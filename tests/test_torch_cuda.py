@@ -23,7 +23,9 @@ from jpeg_tpu_torch.kernels.pack import rows_per_segment
 from jpeg_tpu_torch.ops.dct import set_exact_matmul
 from jpeg_tpu_torch.pipelines.fast import host_constants
 
-from chip_smoke import synthetic_batch
+from chip_smoke import (FIELDS_LAYOUTS, explicit_random, fields_cases,
+                        place_checked, place_plain_streams, random_coefs,
+                        stream_words, synthetic_batch)
 
 pytestmark = pytest.mark.cuda
 
@@ -58,9 +60,10 @@ def test_kernels_equal_plain_twins(dev, quality):
     for a, b in zip(offs, fused.segment_offsets_plain(fields[2])):
         assert torch.equal(a, b)
     sw = enc.seg_rows * 128
-    assert torch.equal(
-        _i32(fused.place(fields[0], fields[1], offs[0], sw)),
-        _i32(fused.place_plain(fields[0], fields[1], offs[0], sw)))
+    got = place_checked(fields[0], fields[1], *offs, sw)
+    for a, b in zip(got, place_plain_streams(fields[0], fields[1], *offs,
+                                             sw)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("mode", ["dynamic", "dynamic-sampled"])
@@ -177,8 +180,10 @@ def test_explicit_kernels_equal_plain_twins(dev):
             (fused.attach_pack_segments(lut, *slots, S, seg_rows),
              fused.attach_pack_segments(lut_c, *(t.cpu() for t in slots), S,
                                         seg_rows))):
-        assert torch.equal(_i32(got[0]).cpu(), _i32(want[0]))
+        # the words of each stream (the card leaves the rest unwritten)
         assert torch.equal(got[1].cpu(), want[1])
+        assert torch.equal(stream_words(*(t.cpu() for t in got)),
+                           stream_words(*want))
 
 
 @pytest.mark.parametrize("mode", ["fixed", "dynamic"])
@@ -235,8 +240,9 @@ def test_sampling_kernels_equal_plain_twins(dev, sampling):
                                          seg_rows)
     want = fused.dct_attach_pack_segments_plain(c["lut"], *consts, px, 2,
                                                 *layout, seg_rows)
-    for a, b in zip(got, want):
-        assert torch.equal(_i32(a), _i32(b))
+    # the words of each stream (the card leaves the rest unwritten)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(stream_words(*got), stream_words(*want))
     n = 128 * layout.period  # whole tiles and whole MCUs
     xt = xt[:, :n].contiguous()
     assert torch.equal(
@@ -528,3 +534,85 @@ def test_front_dct_random_frames_equal_twin(dev, mode):
         assert torch.equal(
             front.front_dct(x, *consts, order=order, sampling=samp),
             front.front_dct_plain(x, *consts, order=order, sampling=samp))
+
+
+def _random_fields(rng, S: int, nblk: int, max_bits: int, p_null: float):
+    """Random D fields as numpy [S, nblk, 64]: nbits in [1, max_bits], 0
+    (NULL) for a share p_null of the slots, and value < 2^nbits."""
+    nb = rng.integers(1, max_bits + 1, (S, nblk, 64))
+    nb[rng.random((S, nblk, 64)) < p_null] = 0
+    val = rng.integers(0, 1 << 30, (S, nblk, 64)) & ((1 << nb) - 1)
+    return nb, val
+
+
+@pytest.mark.parametrize("case", ["one_block", "padding", "fields30",
+                                  "word_boundary", "r17", "y_scan"])
+def test_place_edges_equal_twin(dev, case):
+    """Kernel D into a buffer pre-filled with 0xFFFFFFFF: each stream's
+    words equal the twin's, the words past it stay untouched.  Segments of
+    one block; explicit padding blocks (whole tiles with no bits, a
+    segment with none at all); random fields of up to 30 bits; streams
+    ending on a word boundary; segments of 4080 blocks (1920x1088 r17's Y
+    scan) and of 38400 (a 1920x1280 Y scan)."""
+    rng = np.random.default_rng(53)
+    if case == "padding":
+        lut = torch.from_numpy(host_constants(None)["lut"]).to(dev)
+        value, nbits, bits = fused.symbolize_bits_explicit_plain(
+            *explicit_random(rng, dev), lut)
+        assert int(bits.sum(-1).min()) == 0
+    else:
+        S, nblk, max_bits, p_null = {
+            "one_block": (700, 1, 16, 0.8), "fields30": (3, 500, 30, 0.5),
+            "word_boundary": (5, 333, 30, 0.7), "r17": (2, 4080, 16, 0.93),
+            "y_scan": (1, 38400, 16, 0.95)}[case]
+        nb, val = _random_fields(rng, S, nblk, max_bits, p_null)
+        if case == "word_boundary":  # the last two slots fill the word
+            nb[:, -1, 62:] = val[:, -1, 62:] = 0
+            pad = -nb.sum(axis=(1, 2)) % 32
+            nb[:, -1, 62], nb[:, -1, 63] = pad // 2, pad - pad // 2
+        nbits = torch.from_numpy(nb.astype(np.uint8)).to(dev)
+        value = torch.from_numpy(val.astype(np.int32)).to(dev).view(
+            torch.uint32)
+        bits = nbits.to(torch.int32).sum(-1, dtype=torch.int32)
+    offs, totals = fused.segment_offsets_plain(bits)
+    if case == "word_boundary":
+        assert not bool((totals % 32).any())
+    sw = rows_per_segment(value.shape[1] * 64) * 128
+    got = place_checked(value, nbits, offs, totals, sw)
+    want = place_plain_streams(value, nbits, offs, totals, sw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("layout,nblk", FIELDS_LAYOUTS,
+                         ids=["420", "422", "444", "scan_y", "scan_chroma"])
+def test_symbolize_fields_layouts_equal_twin(dev, layout, nblk):
+    """Kernel E on random coefficients in every block pattern, without and
+    with the mask, fresh and accumulating into random histogram rows."""
+    rng = np.random.default_rng(55 + nblk)
+    for label, kernel, plain in fields_cases(dev, rng, [(layout, nblk)]):
+        got, want = kernel(), plain()
+        assert torch.equal(got[0], want[0]), label
+        assert torch.equal(got[1], want[1]), label
+
+
+def test_symbolize_segments_padding_equal_twin(dev):
+    """E's explicit mode with padding blocks (whole tiles, segment ends, a
+    segment of padding only) and DC differences of +-4095."""
+    ex = explicit_random(np.random.default_rng(57), dev)
+    S = ex[0].shape[0]
+    got = fused.symbolize_segments(*ex, S, 3)
+    want = fused.symbolize_segments_plain(*ex, S, 3)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # launches back to back: each leaves E's workspace zeroed
+    runs = [fused.symbolize_segments(*ex, S, 3) for _ in range(20)]
+    coef = torch.from_numpy(random_coefs(np.random.default_rng(59), 4,
+                                         96)).to(dev)
+    runs2 = [fused.symbolize_fields(coef, 2) for _ in range(20)]
+    want2 = fused.symbolize_fields_plain(coef, 2)
+    torch.cuda.synchronize()
+    for got in runs:
+        assert torch.equal(got[1], want[1])
+    for got in runs2:
+        assert torch.equal(got[0], want2[0])
+        assert torch.equal(got[1], want2[1])

@@ -175,7 +175,7 @@ def test_cpu_wrappers_run_the_plain_twins_and_launch_nothing():
     for a, b in zip(offs, fused.segment_offsets_plain(fields[2])):
         assert torch.equal(a, b)
     seg_words = enc.seg_rows * 128
-    words = fused.place(fields[0], fields[1], offs[0], seg_words)
+    words = fused.place(fields[0], fields[1], *offs, seg_words)
     plain = fused.place_plain(fields[0], fields[1], offs[0], seg_words)
     assert torch.equal(words.view(torch.int32), plain.view(torch.int32))
     assert launch_counts() == dict.fromkeys(launch_counts(), 0)

@@ -47,7 +47,7 @@ def _chain(x, c, n_segs, seg_rows):
     coef = coef.reshape(B * n_segs, -1, 64)
     value, nbits, bits = fused.symbolize_bits(coef, c["lut"])
     offs, totals = fused.segment_offsets(bits)
-    return fused.place(value, nbits, offs, seg_rows * 128), totals
+    return fused.place(value, nbits, offs, totals, seg_rows * 128), totals
 
 
 def _consts(quality):
@@ -144,7 +144,7 @@ def test_offsets_and_place_match_segment_place(budget, monkeypatch):
     S, nblk = bits.shape
     seg_rows = rows_per_segment(nblk * 64)
     offs, totals = fused.segment_offsets(bits)
-    words = fused.place(value, nbits, offs, seg_rows * 128)
+    words = fused.place(value, nbits, offs, totals, seg_rows * 128)
 
     def t(a):  # [S, nblk, 64] -> the TPU layout [64, S * nblk] int32
         return jnp.asarray(a.reshape(S * nblk, 64).T.astype(np.int32))
@@ -187,7 +187,7 @@ def test_offsets_and_place_against_bit_string(seed):
     np.testing.assert_array_equal(totals.numpy(), ends[:, -1])
     seg_words = int(ends.max()) // 32 + 3
     words = fused.place(torch.from_numpy(value), torch.from_numpy(nbits),
-                        offs, seg_words)
+                        offs, totals, seg_words)
     np.testing.assert_array_equal(words.numpy(),
                                   _bit_string_words(value, nbits, seg_words))
 
@@ -220,7 +220,7 @@ def _place_pf(pf, luts, seg_rows):
     """The port's F + C + D: words, totals."""
     value, nbits, bits = fused.attach_pf(pf, luts)
     offs, totals = fused.segment_offsets(bits)
-    return fused.place(value, nbits, offs, seg_rows * 128), totals
+    return fused.place(value, nbits, offs, totals, seg_rows * 128), totals
 
 
 def _transposed(pf):

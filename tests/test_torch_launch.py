@@ -322,3 +322,117 @@ def test_decode_segments_hands_kernel_g_its_mode(monkeypatch, sampling,
     assert args[6] == (phase.data_ptr() if mode == "phased" else None)
     assert args[7] == zz.data_ptr()
     assert args[8:] == (S, mw, nseg, period, ypm)
+
+
+@pytest.fixture
+def fake_launch(monkeypatch):
+    """``fused``'s launches recorded as (name, args), never run; stream
+    handle 5; E's workspaces emptied."""
+    launched = []
+    monkeypatch.setattr(fused, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(fused, "launch",
+                        lambda name, device, *args: launched.append(
+                            (name, args)))
+    monkeypatch.setattr(fused, "stream_handle", lambda index: 5)
+    monkeypatch.setattr(fused, "_hist_work", {})
+    return launched
+
+
+@pytest.mark.parametrize("given_out", [False, True])
+def test_place_hands_d_the_totals_and_its_output(fake_launch, given_out):
+    """Kernel D's wrapper passes the fields, the offsets, C's totals and
+    one output buffer (fresh, or the caller's ``out``), then S, the blocks
+    a segment and the words a segment; no zeroing on the host."""
+    S, nblk, sw = 3, 5, 384
+    value = torch.zeros((S, nblk, 64), dtype=torch.int32).view(torch.uint32)
+    nbits = torch.zeros((S, nblk, 64), dtype=torch.uint8)
+    offs = torch.zeros((S, nblk), dtype=torch.int32)
+    totals = torch.zeros(S, dtype=torch.int32)
+    out = (torch.empty((S, sw), dtype=torch.int32).view(torch.uint32)
+           if given_out else None)
+    words = fused.place(value, nbits, offs, totals, sw, out=out)
+    (name, args), = fake_launch
+    assert name == "place" and words.shape == (S, sw)
+    assert words.dtype == torch.uint32
+    assert args == (value.data_ptr(), nbits.data_ptr(), offs.data_ptr(),
+                    totals.data_ptr(), words.data_ptr(), S, nblk, sw)
+    assert (words.data_ptr() == out.data_ptr()) if given_out else True
+
+
+def test_place_refuses_bad_totals_buffers_and_out(fake_launch):
+    """D's wrapper checks the totals and ``out``, and a words buffer below
+    the worst case of 30 bits a slot, before any launch."""
+    S, nblk = 2, 4
+    value = torch.zeros((S, nblk, 64), dtype=torch.int32).view(torch.uint32)
+    nbits = torch.zeros((S, nblk, 64), dtype=torch.uint8)
+    offs = torch.zeros((S, nblk), dtype=torch.int32)
+    totals = torch.zeros(S, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        fused.place(value, nbits, offs, totals[:1], 384)
+    with pytest.raises(ValueError):
+        fused.place(value, nbits, offs, totals, 100)
+    raw = torch.empty(S * 384 + 1, dtype=torch.int32).view(torch.uint32)
+    with pytest.raises(ValueError):
+        fused.place(value, nbits, offs, totals, 384,
+                    out=raw[1:].view(S, 384))
+    assert fake_launch == []
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_symbolize_fields_hands_e_its_workspace(fake_launch, masked,
+                                                accumulate):
+    """Kernel E's wrapper passes the coefficients, the mask (or None), its
+    outputs (the caller's rows when accumulating), a workspace of a row
+    and a counter per image kept zeroed per (device, stream) and grown on
+    demand, then the images, segments an image, blocks a segment, the
+    block pattern and the accumulate flag."""
+    S, nblk, n = 4, 12, 2
+    coef = torch.zeros((S, nblk, 64), dtype=torch.int16)
+    mask = torch.ones(S // n * nblk, dtype=torch.uint8) if masked else None
+    rows = torch.zeros((n, 1024), dtype=torch.int32) if accumulate else None
+    pf, hist = fused.symbolize_fields(coef, n, mask, (4, 2), rows)
+    (name, args), = fake_launch
+    (key, work), = fused._hist_work.items()
+    assert name == "symbolize_fields" and key == (None, 5)
+    assert work.dtype == torch.int32 and not work.any()
+    assert work.numel() >= n * 1025
+    assert args == (coef.data_ptr(), mask.data_ptr() if masked else None,
+                    pf.data_ptr(), hist.data_ptr(), work.data_ptr(), n,
+                    S // n, nblk, 4, 2, int(accumulate))
+    assert pf.shape == (S, nblk, 64) and hist.shape == (n, 1024)
+    assert pf.is_contiguous() and hist.is_contiguous()
+    assert (hist is rows) if accumulate else True
+    many = torch.zeros((2000, 1, 64), dtype=torch.int16)
+    fused.symbolize_fields(many, 2000, layout=(1, 1))
+    assert fused._hist_work[key].numel() >= 2000 * 1025
+    assert fake_launch[1][1][4] == fused._hist_work[key].data_ptr()
+
+
+def test_symbolize_segments_hands_e_explicit_its_workspace(fake_launch):
+    """E's explicit entry gets the coefficients, DC differences, luma
+    flags, fresh outputs and the same workspace as E, then the images,
+    segments an image and blocks a segment."""
+    S, nblk, n = 6, 7, 3
+    zz = torch.zeros((S, nblk, 64), dtype=torch.int16)
+    dcd = torch.zeros((S, nblk), dtype=torch.int32)
+    isl = torch.ones((S, nblk), dtype=torch.int32)
+    pf, hist = fused.symbolize_segments(zz, dcd, isl, S, n)
+    (name, args), = fake_launch
+    (key, work), = fused._hist_work.items()
+    assert name == "symbolize_fields_explicit"
+    assert args == (zz.data_ptr(), dcd.data_ptr(), isl.data_ptr(),
+                    pf.data_ptr(), hist.data_ptr(), work.data_ptr(), n,
+                    S // n, nblk)
+    assert pf.shape == (S, nblk, 64) and hist.shape == (n, 1024)
+    assert work.numel() >= n * 1025 and not work.any()
+
+
+def test_symbolize_fields_refuses_a_misaligned_hist(fake_launch):
+    """E's last CTA adds to ``hist`` in 16-byte pieces: an accumulating
+    ``hist`` off that boundary is refused before any launch."""
+    coef = torch.zeros((2, 6, 64), dtype=torch.int16)
+    raw = torch.zeros(2 * 1024 + 1, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        fused.symbolize_fields(coef, 2, hist=raw[1:].view(2, 1024))
+    assert fake_launch == []
