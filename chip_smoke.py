@@ -31,8 +31,17 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    mode and order (every coefficient nonzero, truncation boundaries
    dense); then C again at the main paths' shapes and its edges (nblk of
    1 and its tile's 4096 +- 1, one segment of 57600 or 38400 blocks, 640
-   segments), 200 launches back to back each; integer outputs must be
-   exactly equal;
+   segments), 200 launches back to back each; B, B explicit and F write
+   into buffers pre-filled with all ones, are compared on the fields
+   their contract defines (nbits and bits whole, value at every slot with
+   non-zero nbits) and must leave every value group without bits as it
+   was, at the main path's shapes and at their edges (every block
+   pattern, segments of 1, 2 and 3 blocks past a multiple of four and a
+   single block, all-zero blocks, blocks ending at slot 63, long ZRL
+   runs, ACs of +-2047, DC differences of +-4094, explicit padding
+   blocks, and a random LUT whose NULL entry is not empty), and D places
+   B's own fields out of such a buffer; integer outputs must be exactly
+   equal;
 3. the main paths, each with the launch counts reset just before its run
    and read just after, every kernel of the path launched:
    a. ``FastBatchEncoder.encode_batch`` on 16x640x640, 4x1920x1280 and
@@ -124,10 +133,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    main paths' three shapes in turns with its twin and ``torch.cumsum``,
    with the host's cost of C's wrapper and of its parts; every kernel's
    device µs per call (torch.profiler, three profiles) beside its event
-   ms, with the device ops its profiles saw; E's traffic moved by
-   PyTorch's own int16 -> int32 copy beside E and E explicit.  The bounds
-   count the words the streams hold, and D's bytes the values of the
-   non-NULL slots only.
+   ms, with the device ops its profiles saw, and its bound; E's traffic
+   moved by PyTorch's own int16 -> int32 copy beside E and E explicit.
+   The bounds count the words the streams hold, D's bytes the values of
+   the non-NULL slots only, and B's and F's the value groups their
+   contract writes (beside the count of every slot, as before it).
 
 The line before the last is the ``kernels`` JSON record; the last line is
 the JSON verdict.  Inputs are synthetic images (smooth gradients plus hard
@@ -312,6 +322,10 @@ KERNEL_INFO = {
                        "jpeg_tpu/kernels/huffdec.py:761 (K17)"),
 }
 
+# the kernels timed at the shapes of the f64 batch
+F64_KERNELS = ("symbolize_bits_explicit", "symbolize_fields_explicit",
+               "attach_pack_segments")
+
 # NVIDIA's H100 SXM data sheet: HBM3 rate, FP32 rate outside the tensor
 # cores (at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -424,21 +438,30 @@ def place_nbytes(nbits: torch.Tensor, totals: torch.Tensor) -> int:
             + 4 * S * nblk + 4 * S + stream_nbytes(totals))
 
 
-def bounds(B: int, H: int, W: int, n_segs: int, d_bytes: int):
+def bounds(B: int, H: int, W: int, n_segs: int, d_bytes: int,
+           b_nbits: torch.Tensor, f_nbits: torch.Tensor):
     """kernel -> (bound_ms, bound_by): the least time the card could take
     for each kernel's work at this geometry, the larger of its bytes (each
     input read once, each output written once) over the HBM rate and its
     operations (A: the DCT's 64x64 FMAs per block) over the FP32 rate.
-    D's bytes depend on the data: ``place_nbytes`` of its fields."""
+    D's bytes depend on the data: ``place_nbytes`` of its fields; so do
+    B's and F's: ``fields_nbytes`` of their nbits (``b_nbits``,
+    ``f_nbits``).  "<kernel> (per slot)" keys give B's and F's bounds as
+    counted before their fields contract: every value slot written, 7 and
+    9 bytes a slot."""
     nblocks = B * (H // 16) * (W // 16) * 6
     slots = nblocks * 64
     bytes_ = {
         "front_dct": B * H * W * 3 + slots * 2 + (64 * 64 + 3 * 64) * 4,
-        "symbolize_bits": slots * 2 + 4096 + slots * 5 + nblocks * 4,
+        "symbolize_bits": fields_nbytes(slots * 2, b_nbits, 1),
+        "symbolize_bits (per slot)": slots * 2 + 4096 + slots * 5
+        + nblocks * 4,
         "segment_offsets": nblocks * 4 * 2 + B * n_segs * 4,
         "place": d_bytes,
         "symbolize_fields": slots * 2 + slots * 4 + B * 4096,
-        "attach_pf": slots * 4 + B * 4096 + slots * 5 + nblocks * 4,
+        "attach_pf": fields_nbytes(slots * 4, f_nbits, B),
+        "attach_pf (per slot)": slots * 4 + B * 4096 + slots * 5
+        + nblocks * 4,
     }
     flops = {"front_dct": nblocks * 64 * 64 * 2}
     out = {}
@@ -450,16 +473,21 @@ def bounds(B: int, H: int, W: int, n_segs: int, d_bytes: int):
     return out
 
 
-def explicit_bounds(S: int, nblk: int, stream_bytes: int, n_images: int):
+def explicit_bounds(S: int, nblk: int, stream_bytes: int, n_images: int,
+                    x_nbits: torch.Tensor):
     """bound_ms, bound_by of the f64 path's kernels and functions over S
     segments of nblk blocks (all bound by bytes: no arithmetic to speak
     of).  Inputs: zz int16, dc_diff and is_luma int32 per block, the LUT;
     K18b reads three int32 slot arrays; K13 and K18b write the streams'
-    words (``stream_bytes``) and totals."""
+    words (``stream_bytes``) and totals; B explicit its fields under their
+    contract (``fields_nbytes`` of its nbits ``x_nbits``; "(per slot)":
+    every value slot written, as counted before the contract)."""
     blocks, slots = S * nblk, S * nblk * 64
     words = stream_bytes + S * 4
     nbytes = {
-        "symbolize_bits_explicit": slots * 2 + blocks * 8 + 4096
+        "symbolize_bits_explicit": fields_nbytes(slots * 2 + blocks * 8,
+                                                 x_nbits, 1),
+        "symbolize_bits_explicit (per slot)": slots * 2 + blocks * 8 + 4096
         + slots * 5 + blocks * 4,
         "symbolize_fields_explicit": slots * 2 + blocks * 8 + slots * 4
         + n_images * 4096,
@@ -541,6 +569,65 @@ def place_plain_streams(value, nbits, offs, totals, seg_words: int):
     gives them."""
     return (stream_words(fused.place_plain(value, nbits, offs, seg_words),
                          totals), totals)
+
+
+def fields_nbytes(in_bytes: int, nbits: torch.Tensor, n_luts: int) -> int:
+    """The bytes kernel B or F must move under the fields contract: its
+    input (``in_bytes``), one nbits byte a slot, 16 bytes for each group
+    of four slots that holds a slot with non-zero nbits (the values kernel
+    D reads; the other groups are not written), 4 bytes of bits a block,
+    and the LUTs."""
+    S, nblk, _ = nbits.shape
+    groups = int((nbits.view(S, nblk, 16, 4) != 0).any(-1).sum())
+    return (in_bytes + nbits.numel() + 16 * groups + 4 * S * nblk
+            + 4096 * n_luts)
+
+
+def contract_fields(value, nbits, bits):
+    """(value as int32, 0 at every slot whose nbits is 0; nbits; bits):
+    what the fields contract of kernels B and F defines."""
+    return torch.where(nbits > 0, value.view(torch.int32), 0), nbits, bits
+
+
+def prefilled_fields(S: int, nblk: int, dev):
+    """(value, nbits, bits) buffers for kernel B or F, every bit set."""
+    return (torch.full((S, nblk, 64), -1, dtype=torch.int32,
+                       device=dev).view(torch.uint32),
+            torch.full((S, nblk, 64), 255, dtype=torch.uint8, device=dev),
+            torch.full((S, nblk), -1, dtype=torch.int32, device=dev))
+
+
+def fields_checked(kernel, *args, **kw):
+    """Kernel B, B explicit or F (``kernel``, called on ``args``) into
+    buffers pre-filled with all ones, so that a field it forgets shows:
+    raises if it wrote a value group that holds no slot with non-zero
+    nbits; returns ``contract_fields`` of its outputs."""
+    S, nblk = args[0].shape[:2]
+    out = prefilled_fields(S, nblk, args[0].device)
+    got = kernel(*args, **kw, out=out)
+    if any(g is not o for g, o in zip(got, out)):
+        raise AssertionError(f"{kernel.__name__} did not return its out=")
+    value, nbits, _ = out
+    groups = (nbits.view(S, nblk, 16, 4) != 0).any(-1)
+    touched = (value.view(torch.int32).view(S, nblk, 16, 4) != -1).any(-1)
+    stray = int((touched & ~groups).sum())
+    if stray:
+        raise AssertionError(f"{kernel.__name__} wrote {stray} value groups "
+                             f"without bits")
+    return contract_fields(*out)
+
+
+def fields_plain(plain, *args, **kw):
+    """A plain twin's outputs as ``fields_checked`` gives them."""
+    return contract_fields(*plain(*args, **kw))
+
+
+def random_lut(rng: np.random.Generator, dev) -> torch.Tensor:
+    """[1024] int32 combined LUT of random codes of 1-16 bits, its NULL
+    entry too (the kernels must look it up, not assume it empty)."""
+    length = rng.integers(1, 17, 1024)
+    code = rng.integers(0, 1 << 16, 1024) & ((1 << length) - 1)
+    return torch.from_numpy((code | (length << 16)).astype(np.int32)).to(dev)
 
 
 def dynamic_split(e: FastBatchEncoder, xd: torch.Tensor,
@@ -903,17 +990,20 @@ def scan_kernel_times(x: torch.Tensor, consts, lut: torch.Tensor,
                 totals)
     slots = n * 64
     cases = {
+        # F compared on the fields its contract defines
         "K14 (F, one LUT)": (
             lambda: fused.attach_pf(pf, lut1),
             lambda: fused.attach_pf_plain(pf, lut1),
-            slots * 4 + 4096 + slots * 5 + n * 4, lambda out: out),
+            fields_nbytes(slots * 4, nbits, 1),
+            lambda out: contract_fields(*out),
+            slots * 4 + 4096 + slots * 5 + n * 4),
         # C + D read what D reads, with C's bits in place of the offsets
         "K15 (C + D)": (
             lambda: kpack.pack_segments(value, nbits, 1, seg_rows, bits),
             pack_plain, place_nbytes(nbits, bits.sum(-1, dtype=torch.int32)),
-            lambda out: (stream_words(*out), out[1])),
+            lambda out: (stream_words(*out), out[1]), None),
     }
-    for label, (kernel, plain, nbytes, narrow) in cases.items():
+    for label, (kernel, plain, nbytes, narrow, per_slot) in cases.items():
         err = max_abs_err(narrow(kernel()), narrow(plain()))
         if err:
             raise AssertionError(f"{label} disagrees with its plain twin: "
@@ -927,7 +1017,9 @@ def scan_kernel_times(x: torch.Tensor, consts, lut: torch.Tensor,
               f"{x.shape[2] // 3}x{x.shape[1]} on [{card}]: "
               f"{(k0 + k1) / 2:.4f} ms ({k0:.4f}, {k1:.4f}), plain twin "
               f"{(p0 + p1) / 2:.4f} ms ({p0:.4f}, {p1:.4f}), bound "
-              f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms (bytes); "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms (bytes"
+              + (f"; {per_slot / HBM_BYTES_PER_S * 1e3:.5f} counted per "
+                 f"slot" if per_slot else "") + "); "
               f"max_abs_err {err} (tolerance: exact); device µs per call "
               f"(torch.profiler): " + ", ".join(
                   f"{k} {v:.2f}" for k, v in sorted(per_call.items(),
@@ -1872,6 +1964,71 @@ def fields_cases(dev, rng: np.random.Generator,
     return out
 
 
+# kernels B's and F's edge cases on random coefficients: (layout, blocks
+# per segment, segments): every block pattern, nblk = 0, 1, 2 and 3 (mod
+# 4), so that groups of four blocks straddle segments, and a single block
+BITS_CASES = [(LAYOUTS["420"], 66, 6), (LAYOUTS["422"], 68, 6),
+              (LAYOUTS["444"], 69, 6), (SCAN_Y, 77, 6), (SCAN_CHROMA, 79, 6),
+              (LAYOUTS["444"], 75, 4), (SCAN_Y, 1, 1)]
+
+
+def edge_coefs(rng: np.random.Generator, S: int, nblk: int) -> np.ndarray:
+    """``random_coefs`` with the extremes planted: a block whose one AC is
+    2047 at slot 63 (three ZRLs, then a run of 15, and no EOB), one with
+    -2047 at slot 1 and 2047 at slot 62, and DCs alternating +-2047
+    through the last segment (DC differences of +-4094: class 12)."""
+    zz = random_coefs(rng, S, nblk)
+    zz[0, 0, 1:] = 0
+    zz[0, 0, 63] = 2047
+    zz[-1, -1, 1:] = 0
+    zz[-1, -1, 1], zz[-1, -1, 62] = -2047, 2047
+    zz[-1, :, 0] = 2047 * (1 - 2 * (np.arange(nblk) % 2))
+    return zz
+
+
+def bits_cases(dev, rng: np.random.Generator, lut: torch.Tensor,
+               cases=BITS_CASES) -> dict[str, list]:
+    """Kernels B, F and B explicit against their twins under the fields
+    contract (``fields_checked``, out of pre-filled buffers) on
+    ``edge_coefs`` in every case of ``cases`` (F on E's fields of them,
+    two images where the segments split evenly) and on explicit inputs
+    with padding blocks, with ``lut`` and with a random LUT whose NULL
+    entry is not empty: kernel -> [(label, kernel, plain)]."""
+    rlut = random_lut(rng, dev)
+    tables = (("its LUT", lut), ("a random LUT", rlut))
+    out = {"symbolize_bits": [], "attach_pf": [],
+           "symbolize_bits_explicit": []}
+    for layout, nblk, S in cases:
+        coef = torch.from_numpy(edge_coefs(rng, S, nblk)).to(dev)
+        at = (f"edge coefficients, layout {tuple(layout)}, {S} segments of "
+              f"{nblk} blocks")
+        for name, t in tables:
+            out["symbolize_bits"].append((
+                f"{at}, {name}",
+                functools.partial(fields_checked, fused.symbolize_bits, coef,
+                                  t, layout),
+                functools.partial(fields_plain, fused.symbolize_bits_plain,
+                                  coef, t, layout)))
+        n = 2 if S % 2 == 0 else 1
+        pf = fused.symbolize_fields_plain(coef, n, layout=layout)[0]
+        luts = torch.stack([rlut, lut][:n])
+        out["attach_pf"].append((
+            f"{at}, {n} images (a random LUT, then its LUT)",
+            functools.partial(fields_checked, fused.attach_pf, pf, luts),
+            functools.partial(fields_plain, fused.attach_pf_plain, pf,
+                              luts)))
+    ex = explicit_random(rng, dev)
+    for name, t in tables:
+        out["symbolize_bits_explicit"].append((
+            f"random coefficients, padding blocks, "
+            f"{tuple(ex[0].shape[:2])}, {name}",
+            functools.partial(fields_checked, fused.symbolize_bits_explicit,
+                              *ex, t),
+            functools.partial(fields_plain,
+                              fused.symbolize_bits_explicit_plain, *ex, t)))
+    return out
+
+
 # the explicit-mode inputs of random_explicit: segments, blocks, images
 EXPLICIT_SHAPE, EXPLICIT_IMAGES = (6, 300), 3
 
@@ -2028,6 +2185,8 @@ def main() -> int:
     offs_r = fused.segment_offsets_plain(fields_r[2])
     # random explicit-mode inputs with padding blocks, for D and E
     ex_rand = explicit_random(np.random.default_rng(args.seed + 11), dev)
+    # B's, F's and B explicit's edge cases, from a generator of their own
+    edge = bits_cases(dev, np.random.default_rng(args.seed + 12), enc._lut)
     more_checks = {
         "front_dct": [
             ("3-scan order", lambda: front.front_dct(x, *consts,
@@ -2038,11 +2197,16 @@ def main() -> int:
              lambda: front.front_dct_gray_plain(plane, *consts[:3]))],
         "symbolize_bits": [
             (f"3-scan Y, {tuple(cy.shape)}",
-             lambda: fused.symbolize_bits(cy, enc._lut, SCAN_Y),
-             lambda: fused.symbolize_bits_plain(cy, enc._lut, SCAN_Y)),
+             lambda: fields_checked(fused.symbolize_bits, cy, enc._lut,
+                                    SCAN_Y),
+             lambda: fields_plain(fused.symbolize_bits_plain, cy, enc._lut,
+                                  SCAN_Y)),
             (f"3-scan Cb + Cr, {tuple(cc.shape)}",
-             lambda: fused.symbolize_bits(cc, enc._lut, SCAN_CHROMA),
-             lambda: fused.symbolize_bits_plain(cc, enc._lut, SCAN_CHROMA))],
+             lambda: fields_checked(fused.symbolize_bits, cc, enc._lut,
+                                    SCAN_CHROMA),
+             lambda: fields_plain(fused.symbolize_bits_plain, cc, enc._lut,
+                                  SCAN_CHROMA)),
+            *edge["symbolize_bits"]],
         "symbolize_fields": [
             ("mask on", lambda: fused.symbolize_fields(coef, B, mask),
              lambda: fused.symbolize_fields_plain(coef, B, mask)),
@@ -2052,11 +2216,14 @@ def main() -> int:
             *fields_cases(dev, np.random.default_rng(args.seed + 10))],
         "attach_pf": [
             ("dynamic-sampled LUTs",
-             lambda: fused.attach_pf(pf, luts["dynamic-sampled"]),
-             lambda: fused.attach_pf_plain(pf, luts["dynamic-sampled"])),
+             lambda: fields_checked(fused.attach_pf, pf,
+                                    luts["dynamic-sampled"]),
+             lambda: fields_plain(fused.attach_pf_plain, pf,
+                                  luts["dynamic-sampled"])),
             ("3-scan Cb + Cr, per-image LUTs",
-             lambda: fused.attach_pf(pf_c, luts3),
-             lambda: fused.attach_pf_plain(pf_c, luts3))],
+             lambda: fields_checked(fused.attach_pf, pf_c, luts3),
+             lambda: fields_plain(fused.attach_pf_plain, pf_c, luts3)),
+            *edge["attach_pf"]],
         "segment_offsets": [
             ("3-scan Y, 8 restart segments of 1920x1088",
              lambda: fused.segment_offsets(fields_r[2]),
@@ -2069,13 +2236,33 @@ def main() -> int:
                     plane, *consts[:3]), enc._lut, ex_rand,
                 np.random.default_rng(args.seed + 9))],
     }
+    # D placing B's own fields, written into a pre-filled buffer: the
+    # value groups B leaves alone hold all ones, and D must not read them
+    more_checks["place"].append((
+        "kernel B's fields out of a pre-filled buffer",
+        lambda: place_checked(*fused.symbolize_bits(
+            coef, enc._lut, out=prefilled_fields(B, nblk, dev))[:2], *offs,
+            seg_words),
+        lambda: place_plain_streams(fields[0], fields[1], *offs,
+                                    seg_words)))
     # D's words are compared on the streams only, and D alone writes into
     # a pre-filled buffer (its contract: the words past a stream are not
-    # written); the kernel's first check, then the functions ending in D
-    check_calls = {"place": (
-        lambda: place_checked(fields[0], fields[1], *offs, seg_words),
-        lambda: place_plain_streams(fields[0], fields[1], *offs,
-                                    seg_words))}
+    # written); B and F into pre-filled buffers, compared on the fields
+    # their contract defines; the kernels' first checks, then the
+    # functions ending in D
+    check_calls = {
+        "place": (
+            lambda: place_checked(fields[0], fields[1], *offs, seg_words),
+            lambda: place_plain_streams(fields[0], fields[1], *offs,
+                                        seg_words)),
+        "symbolize_bits": (
+            lambda: fields_checked(fused.symbolize_bits, coef, enc._lut),
+            lambda: fields_plain(fused.symbolize_bits_plain, coef,
+                                 enc._lut)),
+        "attach_pf": (
+            lambda: fields_checked(fused.attach_pf, pf, luts["dynamic"]),
+            lambda: fields_plain(fused.attach_pf_plain, pf,
+                                 luts["dynamic"]))}
     # the f64 path's kernels at the shapes of a 4x1920x1280 batch: the
     # exact analysis (torch ops) gives zz, dc_diff and is_luma; the inputs
     # come from a third generator
@@ -2113,9 +2300,14 @@ def main() -> int:
                                          EXPLICIT_IMAGES),
         lambda: fused.symbolize_segments_plain(*ex_rand, len(ex_rand[0]),
                                                EXPLICIT_IMAGES))]
+    check_calls["symbolize_bits_explicit"] = (
+        lambda: fields_checked(fused.symbolize_bits_explicit, seq, dcd, isl,
+                               enc._lut),
+        lambda: fields_plain(fused.symbolize_bits_explicit_plain, seq, dcd,
+                             isl, enc._lut))
     more_checks["symbolize_bits_explicit"] = [
         ("with C and D: K13's analyze_attach_pack_segments",
-         *map(on_streams, k13))]
+         *map(on_streams, k13)), *edge["symbolize_bits_explicit"]]
     # A's 4:2:2 and 4:4:4 modes, its pixel-block mode, K7 and K18a at the
     # shapes of a 4x1920x1280 batch of each sampling (one segment per
     # image); the inputs come from a fourth generator
@@ -2469,6 +2661,16 @@ def main() -> int:
     x_big = torch.from_numpy(synthetic_batch(rng2, 1, 1280, 1920)).to(dev)
     scan_kernel_times(x_big.reshape(1, 1280, 1920 * 3), consts, enc._lut,
                       card, args.runs)
+    # the bounds count the words the streams hold, D's bytes its data, and
+    # B's and F's the value groups their contract writes
+    bound = bounds(B, H, W, enc.n_segs, place_nbytes(fields[1], offs[1]),
+                   fields[1], fused.attach_pf_plain(pf, luts["dynamic"])[1])
+    bound.update(explicit_bounds(
+        s4, nblk4, stream_nbytes(k13[0]()[1]), b4,
+        fused.symbolize_bits_explicit_plain(seq, dcd, isl, enc._lut)[1]))
+    for sp in ("422", "444"):  # A px, K7 and K18a: the 4:4:4 shapes
+        bound.update(sampling_bounds(b5, h5, w5, sp,
+                                     stream_nbytes(k7(sp)()[1])))
     times = {}
     for name, (kernel, plain) in calls.items():
         # in turns (plain, library call, kernel, kernel, library call,
@@ -2481,13 +2683,16 @@ def main() -> int:
         dus = device_us(kernel, args.runs)
         times[name] = ((k0 + k1) / 2, (p0 + p1) / 2, lib, dus[0])
         at = at_of.get(name, f"{b4}x{h4}x{w4} f64" if name in
-                       explicit_bounds(1, 1, 1, 1) else f"{B}x{H}x{W}")
+                       F64_KERNELS else f"{B}x{H}x{W}")
+        old = bound.get(f"{name} (per slot)")
         print(f"timing kernel {name} at {at} on [{card}]: "
               f"{times[name][0]:.4f} ms ({k0:.4f}, {k1:.4f}), plain twin "
               f"{times[name][1]:.4f} ms ({p0:.4f}, {p1:.4f})"
               + (f", one PyTorch call {lib:.4f} ms ({first[1]:.4f}, "
                  f"{second[1]:.4f})" if lib is not None else "")
-              + f"; {device_text(dus)}, every device op of the call")
+              + f"; {device_text(dus)}, every device op of the call; bound "
+              f"{bound[name][0]:.5f} ms ({bound[name][1]}"
+              + (f"; {old[0]:.5f} counted per slot" if old else "") + ")")
     # E's traffic (2 bytes in, 4 out a slot) moved by PyTorch's own int16
     # -> int32 copy of the same coefficients: what this card gives such a
     # write-heavy stream (a yardstick; the port never calls it)
@@ -2502,12 +2707,6 @@ def main() -> int:
               f"{times[name][3]:.2f} µs")
     p0, k0, k1, p1 = (cuda_ms(f, args.runs)
                       for f in (k13[1], k13[0], k13[0], k13[1]))
-    # the bounds count the words the streams hold, and D's bytes its data
-    bound = bounds(B, H, W, enc.n_segs, place_nbytes(fields[1], offs[1]))
-    bound.update(explicit_bounds(s4, nblk4, stream_nbytes(k13[0]()[1]), b4))
-    for sp in ("422", "444"):  # A px, K7 and K18a: the 4:4:4 shapes
-        bound.update(sampling_bounds(b5, h5, w5, sp,
-                                     stream_nbytes(k7(sp)()[1])))
     print(f"timing K13 (B explicit + C + D: analyze_attach_pack_segments) "
           f"at {b4}x{h4}x{w4} f64 on [{card}]: {(k0 + k1) / 2:.4f} ms "
           f"({k0:.4f}, {k1:.4f}), plain {(p0 + p1) / 2:.4f} ms ({p0:.4f}, "

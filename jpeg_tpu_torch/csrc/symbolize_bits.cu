@@ -20,12 +20,28 @@
 // _symbolize_attach_kernel, then K4); with C and D after it, it replaces
 // K13.  The coefficients' DC slot is ignored there.
 //
-// What bounds it on an H100: memory traffic (2 bytes in, 5 bytes out per
-// slot) and the serial dependence of each slot on the last nonzero slot
-// before it.  Design: one warp per 8x8 block, two slots per lane; the slot
-// logic (DC difference by index, warp max-scan) is block_slots.cuh, shared
-// with kernel E.  The 1024-entry LUT sits in shared memory, loaded once
-// per block of a grid-stride loop.
+// The fields contract (block_slots.cuh, store_fields): nbits and bits are
+// written whole; value only in the 16-byte groups (slots 4g..4g+3 of a
+// block) that hold a slot with non-zero nbits, the groups kernel D reads.
+// The other groups keep what the buffer held.
+//
+// What bounds it on an H100: memory traffic.  The work is 2 bytes in and
+// 1 byte of nbits out a slot, 16 bytes a group that holds a symbol (about
+// 5 % of the slots are not NULL) and 4 bytes a block; the serial
+// dependence of each slot on the last nonzero slot before it is a short
+// scan.  Design: kernel E's skeleton (block_slots.cuh): a warp holds four
+// blocks at a time, eight lanes a block and eight slots a lane in
+// half-block pieces (two 8-byte loads), and loads its next four blocks
+// before it symbolizes these; a block's DC predecessor comes from the
+// warp's registers where it lies among the four, else from a load issued
+// with the block; the second halves' slot logic runs only where a block of
+// the warp has a symbol there; the slots it skips, and padding blocks,
+// take the NULL entry held in a register (a shared-memory lookup for each
+// of them made the compiler spill inside the loop, a far slower B).  The
+// 1024-entry LUT sits in shared memory, loaded once per CTA of a grid of
+// the device's resident CTAs (asked once a device).  Coefficients are
+// loaded with a 256-byte L2 fetch hint (read once, 512 contiguous bytes a
+// warp).  The output stage (store_fields) is kernel F's too.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,46 +50,51 @@
 namespace {
 
 constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
 
-// kExplicit: DC differences and luma flags from dc_diff / is_luma (see
-// block_slots_explicit); else from the block pattern layout.
+// kExplicit: DC differences and luma flags from dc_diff / is_luma; else
+// from the block pattern layout.
 template <bool kExplicit>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads)
 symbolize_bits_kernel(const int16_t* __restrict__ coef,
                       const int* __restrict__ dc_diff,
                       const int* __restrict__ is_luma,
                       const int* __restrict__ lut, uint32_t* __restrict__ value,
                       uint8_t* __restrict__ nbits, int* __restrict__ bits,
-                      int nblk, long long total_blocks, jt::McuLayout layout) {
-  __shared__ int s_lut[1024];
-  for (int i = threadIdx.x; i < 1024; i += blockDim.x) s_lut[i] = lut[i];
+                      int nblk, int total, jt::McuLayout layout) {
+  __shared__ __align__(16) int s_lut[1024];
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 256; i += kThreads)
+    reinterpret_cast<int4*>(s_lut)[i] =
+        reinterpret_cast<const int4*>(lut)[i];
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned full = 0xffffffffu;
-  for (long long gb = (long long)blockIdx.x * kWarps + warp;
-       gb < total_blocks; gb += (long long)gridDim.x * kWarps) {
-    const jt::SlotPair s =
-        kExplicit
-            ? jt::block_slots_explicit(coef, dc_diff, is_luma, gb, lane)
-            // b: the block's index within its segment
-            : jt::block_slots(coef, gb, (int)(gb % nblk), lane, layout);
-    const int idx0 = s.idx0, ex0 = s.ex0, en0 = s.en0;
-    const int idx1 = s.idx1, ex1 = s.ex1, en1 = s.en1;
-    const int e0 = s_lut[idx0], e1 = s_lut[idx1];
-    const int nb0 = (e0 >> 16) + en0, nb1 = (e1 >> 16) + en1;
-    const uint32_t val0 = ((uint32_t)(e0 & 0xffff) << en0) | (uint32_t)ex0;
-    const uint32_t val1 = ((uint32_t)(e1 & 0xffff) << en1) | (uint32_t)ex1;
-
-    reinterpret_cast<uint2*>(value + gb * 64)[lane] = make_uint2(val0, val1);
-    reinterpret_cast<uchar2*>(nbits + gb * 64)[lane] =
-        make_uchar2((unsigned char)nb0, (unsigned char)nb1);
-    int sum = nb0 + nb1;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_down_sync(full, sum, off);
-    if (lane == 0) bits[gb] = sum;
+  // the NULL entry, for the slots the vote skips and padding blocks (a
+  // register, not a shared-memory load a slot)
+  const int null_e = s_lut[jt::kNullIndex];
+  const int lane = tid & 31, warp = tid >> 5;
+  const int q = lane & 7, j = lane >> 3;  // eighth of the block, block
+  const int groups = (total + 3) / 4;
+  const int stride = gridDim.x * kWarps;
+  int g = blockIdx.x * kWarps + warp;
+  jt::LaneIn cur = jt::load_lane<kExplicit>(
+      coef, dc_diff, is_luma, nullptr, 0, g * 4 + j, g < groups ? total : 0,
+      nblk, q, layout);
+  for (; g < groups; g += stride) {
+    const int gn = g + stride;
+    jt::LaneIn nxt = jt::load_lane<kExplicit>(
+        coef, dc_diff, is_luma, nullptr, 0, gn * 4 + j,
+        gn < groups ? total : 0, nblk, q, layout);
+    int v[8];
+    const int luma = jt::lane_values<kExplicit>(cur, lane, v);
+    uint32_t val[8];
+    int nb[8];
+    jt::slots8(v, q, luma, [&](int i, int idx, int ex, int en) {
+      jt::attach_field(idx == jt::kNullIndex ? null_e : s_lut[idx], ex, en,
+                       &val[i], &nb[i]);
+    });
+    jt::store_fields(val, nb, cur.valid, g * 4 + j, q, value, nbits, bits);
+    cur = nxt;
   }
 }
 
@@ -82,18 +103,19 @@ int launch(const void* coef, const void* dc_diff, const void* is_luma,
            const void* lut, void* value, void* nbits, void* bits,
            int n_segs, int nblk, jt::McuLayout layout, void* stream) {
   const long long total = (long long)n_segs * nblk;
+  if (total >= (1LL << 31) - 4LL * kThreads * 65536)
+    return (int)cudaErrorInvalidValue;  // block indices stay int32
   if (total == 0) return (int)cudaGetLastError();
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long need = (total + kWarps - 1) / kWarps;
-  const long long cap = 8LL * (sms > 0 ? sms : 1);
+  static int cached[jt::kMaxDevices];
+  const long long need = ((total + 3) / 4 + kWarps - 1) / kWarps;
+  const long long cap = jt::resident_ctas(
+      cached, symbolize_bits_kernel<kExplicit>, kThreads);
   const int grid = (int)(need < cap ? need : cap);
   symbolize_bits_kernel<kExplicit>
-      <<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
+      <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
           (const int16_t*)coef, (const int*)dc_diff, (const int*)is_luma,
           (const int*)lut, (uint32_t*)value, (uint8_t*)nbits, (int*)bits,
-          nblk, total, layout);
+          nblk, (int)total, layout);
   return (int)cudaGetLastError();
 }
 

@@ -30,8 +30,9 @@
 // What bounds it on an H100: memory traffic (2 bytes in, 4 bytes out per
 // slot), a write-heavy stream.  Design: a warp holds four blocks at a
 // time, eight lanes a block and eight slots a lane, four of each half
-// block (two 8-byte loads; slots8_fields of block_slots.cuh), and loads
-// its next four blocks before it symbolizes these; each lane stores its
+// block (two 8-byte loads; load_lane, lane_values and slots8 of
+// block_slots.cuh, shared with kernel B), and loads its next four blocks
+// before it symbolizes these; each lane stores its
 // fields in two 16-byte streaming stores, every store instruction whole
 // half blocks.  The second halves' slot logic runs only where a block of
 // the warp has a symbol there (most blocks end early).  A block's DC
@@ -60,52 +61,6 @@ static_assert(kThreads * 4 == kBins, "the epilogue moves 4 bins a thread");
 
 using Counter = cuda::atomic_ref<unsigned int, cuda::thread_scope_device>;
 
-// One lane's inputs for its block of a group of four.
-struct LaneIn {
-  uint2 lo, hi;  // its slots (jt::slot8): 4q..4q+3, 32+4q..32+4q+3
-  int prev_dc;   // the previous same-component DC, where loaded
-  int dcd;       // explicit: the DC difference
-  int luma;      // luma flag (explicit: -1 for padding)
-  int d;         // distance to the DC predecessor (0: none)
-  bool valid;    // the block exists
-  bool keep;     // its slots are counted
-};
-
-template <bool kExplicit>
-__device__ __forceinline__ LaneIn load_lane(
-    const int16_t* __restrict__ coef, const int* __restrict__ dc_diff,
-    const int* __restrict__ is_luma, const uint8_t* __restrict__ mask,
-    long long base, int k, int per_image, int nblk, int q,
-    jt::McuLayout l) {
-  LaneIn in{make_uint2(0, 0), make_uint2(0, 0), 0, 0, 0, 0, false, false};
-  if (k >= per_image) return in;
-  const long long gb = base + k;
-  in.valid = true;
-  const uint2* c = reinterpret_cast<const uint2*>(coef + gb * 64);
-  in.lo = c[q];
-  in.hi = c[8 + q];
-  if (kExplicit) {
-    if (q == 0) {  // lane q == 0 hands the flag to the block's lanes
-      in.luma = is_luma[gb];
-      in.dcd = dc_diff[gb];
-    }
-  } else {
-    // the previous same-component DC: the last Y of the previous MCU for
-    // its first Y block, the previous Y inside an MCU, one MCU back for
-    // chroma; none at the segment's start
-    const int b = k % nblk;
-    const int pos = b % l.period;
-    in.luma = pos < l.y_per_mcu;
-    const int d = in.luma ? (pos == 0 ? l.period - l.y_per_mcu + 1 : 1)
-                          : l.period;
-    in.d = b >= d ? d : 0;
-    // outside the warp's four blocks: load it now, with the block
-    if (q == 0 && in.d > (k & 3)) in.prev_dc = coef[(gb - d) * 64];
-    in.keep = mask == nullptr || mask[k];
-  }
-  return in;
-}
-
 template <bool kExplicit>
 __global__ void __launch_bounds__(kThreads)
 symbolize_fields_kernel(const int16_t* __restrict__ coef,
@@ -124,39 +79,25 @@ symbolize_fields_kernel(const int16_t* __restrict__ coef,
 
   const int lane = tid & 31, warp = tid >> 5;
   const int q = lane & 7, j = lane >> 3;  // eighth of the block, block
-  const unsigned full = 0xffffffffu;
   const long long base = (long long)blockIdx.y * per_image;
   const int groups = (per_image + 3) / 4;
   const int stride = gridDim.x * kWarps;
   int* sh = s_hist[warp];
   int g = blockIdx.x * kWarps + warp;
-  LaneIn cur = load_lane<kExplicit>(coef, dc_diff, is_luma, mask, base,
-                                    g * 4 + j, g < groups ? per_image : 0,
-                                    nblk, q, layout);
+  jt::LaneIn cur = jt::load_lane<kExplicit>(
+      coef, dc_diff, is_luma, mask, base, g * 4 + j,
+      g < groups ? per_image : 0, nblk, q, layout);
   for (; g < groups; g += stride) {
     const int gn = g + stride;
-    LaneIn nxt = load_lane<kExplicit>(
+    jt::LaneIn nxt = jt::load_lane<kExplicit>(
         coef, dc_diff, is_luma, mask, base, gn * 4 + j,
         gn < groups ? per_image : 0, nblk, q, layout);
-    int v[8] = {(int16_t)(cur.lo.x & 0xffffu), (int16_t)(cur.lo.x >> 16),
-                (int16_t)(cur.lo.y & 0xffffu), (int16_t)(cur.lo.y >> 16),
-                (int16_t)(cur.hi.x & 0xffffu), (int16_t)(cur.hi.x >> 16),
-                (int16_t)(cur.hi.y & 0xffffu), (int16_t)(cur.hi.y >> 16)};
-    if (kExplicit) {
-      if (q == 0) v[0] = cur.dcd;
-      cur.luma = __shfl_sync(full, cur.luma, lane & ~7);
-      cur.keep = cur.valid && cur.luma >= 0;
-    } else {
-      // the DC of the block d back, where the warp holds it (its lane 0)
-      const int held = __shfl_sync(full, v[0], (lane - 8 * cur.d) & 31);
-      if (q == 0 && cur.d) v[0] -= cur.d <= j ? held : cur.prev_dc;
-    }
+    int v[8];
+    const int luma = jt::lane_values<kExplicit>(cur, lane, v);
     int f[8];
-    jt::slots8_fields(v, q, cur.luma > 0, f);
-    if (kExplicit && cur.luma < 0) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) f[i] = jt::kNullIndex;
-    }
+    jt::slots8(v, q, luma, [&](int i, int idx, int ex, int en) {
+      f[i] = idx | (en << 10) | (ex << 14);
+    });
     if (cur.valid) {
       int4* out = reinterpret_cast<int4*>(pf + (base + g * 4 + j) * 64);
       // read once, by kernel F after the host's table build: streaming
@@ -211,24 +152,12 @@ symbolize_fields_kernel(const int16_t* __restrict__ coef,
   if (tid == 0) *done = 0;
 }
 
-constexpr int kMaxDevices = 64;
-
-// CTAs of the kernel resident on the current device at once (SMs times
-// CTAs an SM), asked once a device
+// CTAs of the kernel resident on the current device at once
 template <bool kExplicit>
 int resident_ctas() {
-  static int cached[kMaxDevices];
-  int dev = 0;
-  cudaGetDevice(&dev);
-  const int slot = dev >= 0 && dev < kMaxDevices ? dev : 0;
-  if (cached[slot] == 0) {
-    int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, symbolize_fields_kernel<kExplicit>, kThreads, 0);
-    cached[slot] = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
-  }
-  return cached[slot];
+  static int cached[jt::kMaxDevices];
+  return jt::resident_ctas(cached, symbolize_fields_kernel<kExplicit>,
+                           kThreads);
 }
 
 template <bool kExplicit>

@@ -19,6 +19,10 @@ words, and the dynamic-table stages around the histogram.
   fields and attach each image's LUT, giving B's outputs for C and D;
   ports the attach of ``_pf_place_kernel`` and ``_attach_grouped_kernel``.
 
+B and F share a fields contract (``symbolize_bits``): on the card they
+write ``value`` only in the 16-byte groups of slots that hold a slot with
+non-zero ``nbits``, the only groups D reads.
+
 B and E take a segment ``layout`` (``ops.color.Layout``): the interleaved
 4:2:0, 4:2:2 or 4:4:4 MCU, or one component's scan of the 3-scan layout
 (``SCAN_Y``, ``SCAN_CHROMA``), which sets each block's luma flag and DC
@@ -84,8 +88,44 @@ def symbolize_bits_plain(coef: torch.Tensor, lut: torch.Tensor,
     return _attach_plain(lut[idx], extra, extra_n)
 
 
+def _fields_out(name: str, S: int, nblk: int, device: torch.device,
+                out=None):
+    """The (value, nbits, bits) buffers of kernel B or F: views of one
+    fresh allocation (value first, so it starts where the allocation does,
+    on a 16-byte boundary; then nbits, then bits), or the caller's ``out``
+    triple once it has passed the kernels' checks: contiguous, of the
+    fields' dtypes and shapes, on ``device``, ``value`` on a 16-byte
+    boundary and ``nbits`` on a 4-byte one (the kernels' vector
+    stores)."""
+    if out is None:  # (as_strided: the fewest tensor ops on the host)
+        n, rows = S * nblk, (nblk * 64, 64, 1)
+        buf = torch.empty(n * 81, dtype=torch.int32, device=device)
+        return (buf.view(torch.uint32).as_strided((S, nblk, 64), rows),
+                buf.view(torch.uint8).as_strided((S, nblk, 64), rows,
+                                                 n * 256),
+                buf.as_strided((S, nblk), (nblk, 1), n * 80))
+    value, nbits, bits = out
+    check_tensor("out value", value, torch.uint32, (S, nblk, 64))
+    check_tensor("out nbits", nbits, torch.uint8, (S, nblk, 64))
+    check_tensor("out bits", bits, torch.int32, (S, nblk))
+    if ({t.device for t in out} != {device} or value.data_ptr() % 16
+            or nbits.data_ptr() % 4):
+        raise ValueError(f"{name}: out must lie on the inputs' device, "
+                         f"value 16-byte and nbits 4-byte aligned")
+    return value, nbits, bits
+
+
+def _plain_into(fields, out):
+    """A plain twin's (value, nbits, bits), copied into ``out`` if given."""
+    if out is None:
+        return fields
+    for dst, src in zip(out, fields):
+        dst.copy_(src)
+    return tuple(out)
+
+
 def symbolize_bits(coef: torch.Tensor, lut: torch.Tensor,
-                   layout: Layout = MCU_420):
+                   layout: Layout = MCU_420, out=None):
     """[S, nblk, 64] int16 coefs -> (value, nbits, bits).
 
     ``value`` uint32 and ``nbits`` uint8 are [S, nblk, 64], one Huffman
@@ -93,18 +133,30 @@ def symbolize_bits(coef: torch.Tensor, lut: torch.Tensor,
     int32 [S, nblk], the bits of each block.  Each segment restarts the DC
     prediction.  ``lut`` is the [1024] int32 combined LUT; every segment
     has the block pattern ``layout``.
+
+    The fields contract: ``nbits`` and ``bits`` are written whole;
+    ``value`` is written in every 16-byte group (slots 4g..4g+3 of a
+    block) that holds a slot with non-zero nbits, and on the card nowhere
+    else: the other groups keep what the buffer held (kernel D, the one
+    reader of ``value``, reads no other group).  The plain twin writes
+    every slot (0 where NULL).  On the card the three outputs are views of
+    one allocation; ``out``, a (value, nbits, bits) triple of contiguous
+    buffers on the card (``value`` 16-byte and ``nbits`` 4-byte aligned),
+    takes them in its place (the checks pre-fill it to show the groups
+    left alone).
     """
     if on_cpu(coef, lut):
-        return symbolize_bits_plain(coef, lut, layout)
+        return _plain_into(symbolize_bits_plain(coef, lut, layout), out)
     S, nblk, _ = coef.shape
     check_tensor("coef", coef, torch.int16, (S, nblk, 64))
     check_tensor("lut", lut, torch.int32, (1024,))
     _check_layout("symbolize_bits", nblk, layout)
-    dev = coef.device
-    value = torch.empty((S, nblk, 64), dtype=torch.uint32, device=dev)
-    nbits = torch.empty((S, nblk, 64), dtype=torch.uint8, device=dev)
-    bits = torch.empty((S, nblk), dtype=torch.int32, device=dev)
-    launch("symbolize_bits", dev, coef.data_ptr(), lut.data_ptr(),
+    value, nbits, bits = _fields_out("symbolize_bits", S, nblk, coef.device,
+                                     out)
+    # 8-byte coefficient loads, 16-byte LUT loads (a copy where the data
+    # start off that boundary)
+    coef, lut = aligned(coef, 8), aligned(lut, 16)
+    launch("symbolize_bits", coef.device, coef.data_ptr(), lut.data_ptr(),
            value.data_ptr(), nbits.data_ptr(), bits.data_ptr(), S, nblk,
            *layout)
     return value, nbits, bits
@@ -134,22 +186,24 @@ def symbolize_bits_explicit_plain(zz: torch.Tensor, dc_diff: torch.Tensor,
 
 
 def symbolize_bits_explicit(zz: torch.Tensor, dc_diff: torch.Tensor,
-                            is_luma: torch.Tensor, lut: torch.Tensor):
+                            is_luma: torch.Tensor, lut: torch.Tensor,
+                            out=None):
     """B's explicit mode: [S, nblk, 64] int16 (or int32) coefs, [S, nblk]
     int32 DC differences and luma flags (1, 0, -1: padding) -> B's
-    (value, nbits, bits).  The DC slot of ``zz`` is ignored."""
+    (value, nbits, bits), under B's fields contract, ``out`` as B's.  The
+    DC slot of ``zz`` is ignored."""
     if on_cpu(zz, dc_diff, is_luma, lut):
-        return symbolize_bits_explicit_plain(zz, dc_diff, is_luma, lut)
+        return _plain_into(
+            symbolize_bits_explicit_plain(zz, dc_diff, is_luma, lut), out)
     zz = _explicit_inputs("symbolize_bits_explicit", zz, dc_diff, is_luma)
     check_tensor("lut", lut, torch.int32, (1024,))
     S, nblk, _ = zz.shape
-    dev = zz.device
-    value = torch.empty((S, nblk, 64), dtype=torch.uint32, device=dev)
-    nbits = torch.empty((S, nblk, 64), dtype=torch.uint8, device=dev)
-    bits = torch.empty((S, nblk), dtype=torch.int32, device=dev)
-    launch("symbolize_bits_explicit", dev, zz.data_ptr(), dc_diff.data_ptr(),
-           is_luma.data_ptr(), lut.data_ptr(), value.data_ptr(),
-           nbits.data_ptr(), bits.data_ptr(), S, nblk)
+    value, nbits, bits = _fields_out("symbolize_bits_explicit", S, nblk,
+                                     zz.device, out)
+    zz, lut = aligned(zz, 8), aligned(lut, 16)
+    launch("symbolize_bits_explicit", zz.device, zz.data_ptr(),
+           dc_diff.data_ptr(), is_luma.data_ptr(), lut.data_ptr(),
+           value.data_ptr(), nbits.data_ptr(), bits.data_ptr(), S, nblk)
     return value, nbits, bits
 
 
@@ -220,8 +274,10 @@ def place_plain(value: torch.Tensor, nbits: torch.Tensor,
                 offs: torch.Tensor, seg_words: int) -> torch.Tensor:
     """Plain twin of ``place``, on any device."""
     S = value.shape[0]
-    v = value.view(torch.int32).to(torch.int64)
     nb = nbits.to(torch.int64)
+    # a slot with no bits has no field, whatever its value holds (kernel
+    # D reads no value there; B and F need not write one)
+    v = torch.where(nb > 0, value.view(torch.int32).to(torch.int64), 0)
     o = offs.to(torch.int64)[..., None] + torch.cumsum(nb, dim=-1) - nb
     w = o >> 5
     e = (o & 31) + nb
@@ -245,7 +301,8 @@ def place(value: torch.Tensor, nbits: torch.Tensor, offs: torch.Tensor,
           out: torch.Tensor | None = None) -> torch.Tensor:
     """Fields at their bit offsets -> words uint32 [S, seg_words].
 
-    ``value``/``nbits`` are ``symbolize_bits``' fields (value < 2^nbits),
+    ``value``/``nbits`` are ``symbolize_bits``' fields (value < 2^nbits;
+    a slot whose nbits is 0 has no field, and its value is not read),
     ``offs`` and ``totals`` the block offsets and segment totals of
     ``segment_offsets``.  Bit i of a segment's stream is bit ``31 - (i &
     31)`` of word ``i >> 5``.  The words ``[0, ceil(totals[s] / 32))`` of
@@ -389,15 +446,16 @@ def attach_pf_plain(pf: torch.Tensor, luts: torch.Tensor):
     return _attach_plain(luts[image[:, None, None], idx], extra, extra_n)
 
 
-def attach_pf(pf: torch.Tensor, luts: torch.Tensor):
+def attach_pf(pf: torch.Tensor, luts: torch.Tensor, out=None):
     """Packed fields + per-image LUTs -> (value, nbits, bits).
 
     ``pf`` is ``symbolize_fields``' [S, nblk, 64] int32, ``luts`` the
     [n_images, 1024] int32 combined LUTs; segment ``s`` uses LUT
-    ``s // (S // n_images)``.  The outputs are ``symbolize_bits``'.
+    ``s // (S // n_images)``.  The outputs, their fields contract and
+    ``out`` are ``symbolize_bits``'.
     """
     if on_cpu(pf, luts):
-        return attach_pf_plain(pf, luts)
+        return _plain_into(attach_pf_plain(pf, luts), out)
     S, nblk, _ = pf.shape
     n_images = luts.shape[0]
     check_tensor("pf", pf, torch.int32, (S, nblk, 64))
@@ -405,11 +463,9 @@ def attach_pf(pf: torch.Tensor, luts: torch.Tensor):
     if n_images < 1 or S % n_images or n_images > 65535:
         raise ValueError(f"attach_pf: {S} segments are not {n_images} "
                          f"images")
-    dev = pf.device
-    value = torch.empty((S, nblk, 64), dtype=torch.uint32, device=dev)
-    nbits = torch.empty((S, nblk, 64), dtype=torch.uint8, device=dev)
-    bits = torch.empty((S, nblk), dtype=torch.int32, device=dev)
-    launch("attach_pf", dev, pf.data_ptr(), luts.data_ptr(),
+    value, nbits, bits = _fields_out("attach_pf", S, nblk, pf.device, out)
+    pf, luts = aligned(pf, 16), aligned(luts, 16)  # 16-byte loads
+    launch("attach_pf", pf.device, pf.data_ptr(), luts.data_ptr(),
            value.data_ptr(), nbits.data_ptr(), bits.data_ptr(), n_images,
            S // n_images, nblk)
     return value, nbits, bits

@@ -54,7 +54,12 @@ def attach(lut: torch.Tensor, idx: torch.Tensor, extra: torch.Tensor,
 def attach_grouped(luts: torch.Tensor, idx: torch.Tensor,
                    extra: torch.Tensor, extra_n: torch.Tensor):
     """Per-group tables: luts [G, 1024]; idx/extra/extra_n [G, ...] int32
-    -> (value, nbits) int32 of idx's shape; group g looks up ``luts[g]``."""
+    -> (value, nbits) int32 of idx's shape; group g looks up ``luts[g]``.
+
+    ``value`` is 0 wherever ``nbits`` is 0: kernel F leaves the value of
+    such a slot unwritten (its fields contract), and the field is empty.
+    On every LUT that ``build_combined_lut`` makes (entry 0 wherever the
+    length is 0) this is the plain lookup's value, and ``jpeg_tpu``'s."""
     from . import fused  # fused imports ops.symbols, which imports this
     G, shape = luts.shape[0], idx.shape
     pf = fused.pack_fields(idx.reshape(G, -1), extra.reshape(G, -1),
@@ -65,6 +70,7 @@ def attach_grouped(luts: torch.Tensor, idx: torch.Tensor,
         pf = torch.cat([pf, pf.new_full((G, pad), NULL_INDEX)], dim=1)
     value, nbits, _ = fused.attach_pf(pf.reshape(G, -1, 64).contiguous(),
                                       luts.contiguous())
-    value = value.view(torch.int32).reshape(G, -1)[:, :n]
     nbits = nbits.to(torch.int32).reshape(G, -1)[:, :n]
+    value = torch.where(nbits > 0, value.view(torch.int32).reshape(G, -1)[
+        :, :n], 0)
     return value.reshape(shape), nbits.reshape(shape)

@@ -23,9 +23,11 @@ from jpeg_tpu_torch.kernels.pack import rows_per_segment
 from jpeg_tpu_torch.ops.dct import set_exact_matmul
 from jpeg_tpu_torch.pipelines.fast import host_constants
 
-from chip_smoke import (FIELDS_LAYOUTS, explicit_random, fields_cases,
-                        place_checked, place_plain_streams, random_coefs,
-                        stream_words, synthetic_batch)
+from chip_smoke import (BITS_CASES, FIELDS_LAYOUTS, bits_cases,
+                        edge_coefs, explicit_random, fields_cases,
+                        fields_checked, fields_plain, place_checked,
+                        place_plain_streams, prefilled_fields, random_coefs,
+                        random_lut, stream_words, synthetic_batch)
 
 pytestmark = pytest.mark.cuda
 
@@ -36,10 +38,6 @@ def dev():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     set_exact_matmul()
     return torch.device("cuda", 0)
-
-
-def _i32(t):
-    return t.view(torch.int32) if t.dtype == torch.uint32 else t
 
 
 @pytest.mark.parametrize("quality", [None, 75, 100])
@@ -53,15 +51,19 @@ def test_kernels_equal_plain_twins(dev, quality):
     coef = front.front_dct(x, *c)
     assert torch.equal(coef, front.front_dct_plain(x, *c))
     coef = coef.view(4, -1, 64)
+    # B under its fields contract, out of pre-filled buffers
+    for a, b in zip(fields_checked(fused.symbolize_bits, coef, enc._lut),
+                    fields_plain(fused.symbolize_bits_plain, coef, enc._lut)):
+        assert torch.equal(a, b)
     fields = fused.symbolize_bits(coef, enc._lut)
-    for a, b in zip(fields, fused.symbolize_bits_plain(coef, enc._lut)):
-        assert torch.equal(_i32(a), _i32(b))
+    plain = fused.symbolize_bits_plain(coef, enc._lut)
     offs = fused.segment_offsets(fields[2])
     for a, b in zip(offs, fused.segment_offsets_plain(fields[2])):
         assert torch.equal(a, b)
     sw = enc.seg_rows * 128
+    # D on the kernel's fields (value groups without bits unwritten)
     got = place_checked(fields[0], fields[1], *offs, sw)
-    for a, b in zip(got, place_plain_streams(fields[0], fields[1], *offs,
+    for a, b in zip(got, place_plain_streams(plain[0], plain[1], *offs,
                                              sw)):
         assert torch.equal(a, b)
 
@@ -81,9 +83,9 @@ def test_dynamic_kernels_equal_plain_twins(dev, mode):
     _, luts = enc._build_tables_batch(hist.cpu().numpy(),
                                       smooth=mode == "dynamic-sampled")
     luts = torch.from_numpy(luts).to(dev)
-    for a, b in zip(fused.attach_pf(pf, luts),
-                    fused.attach_pf_plain(pf, luts)):
-        assert torch.equal(_i32(a), _i32(b))
+    for a, b in zip(fields_checked(fused.attach_pf, pf, luts),
+                    fields_plain(fused.attach_pf_plain, pf, luts)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("mode", ["fixed", "dynamic", "dynamic-sampled"])
@@ -117,9 +119,11 @@ def test_scan_layouts_and_gray_equal_plain_twins(dev):
               (coef[480:].view(4, 60, 64), SCAN_CHROMA))
     hist = want_hist = None
     for cf, layout in groups:
-        for a, b in zip(fused.symbolize_bits(cf, enc._lut, layout),
-                        fused.symbolize_bits_plain(cf, enc._lut, layout)):
-            assert torch.equal(_i32(a), _i32(b))
+        for a, b in zip(
+                fields_checked(fused.symbolize_bits, cf, enc._lut, layout),
+                fields_plain(fused.symbolize_bits_plain, cf, enc._lut,
+                             layout)):
+            assert torch.equal(a, b)
         pf, hist = fused.symbolize_fields(cf, 2, layout=layout, hist=hist)
         want_pf, want_hist = fused.symbolize_fields_plain(
             cf, 2, layout=layout, hist=want_hist)
@@ -163,10 +167,12 @@ def test_explicit_kernels_equal_plain_twins(dev):
     zz_d, dcd_d, isl_d = (t.to(dev) for t in cpu)
     lut_c = torch.from_numpy(host_constants(None)["lut"])
     lut = lut_c.to(dev)
-    for a, b in zip(fused.symbolize_bits_explicit(zz_d, dcd_d, isl_d, lut),
-                    fused.symbolize_bits_explicit_plain(zz_d, dcd_d, isl_d,
-                                                        lut)):
-        assert torch.equal(_i32(a), _i32(b))
+    for a, b in zip(
+            fields_checked(fused.symbolize_bits_explicit, zz_d, dcd_d, isl_d,
+                           lut),
+            fields_plain(fused.symbolize_bits_explicit_plain, zz_d, dcd_d,
+                         isl_d, lut)):
+        assert torch.equal(a, b)
     pf, hist = fused.symbolize_segments(zz_d, dcd_d, isl_d, S, 2)
     want_pf, want_hist = fused.symbolize_segments_plain(zz_d, dcd_d, isl_d,
                                                         S, 2)
@@ -616,3 +622,39 @@ def test_symbolize_segments_padding_equal_twin(dev):
     for got in runs2:
         assert torch.equal(got[0], want2[0])
         assert torch.equal(got[1], want2[1])
+
+
+@pytest.mark.parametrize("case", range(len(BITS_CASES) + 1),
+                         ids=[f"{tuple(layout)}x{nblk}x{S}" for layout, nblk, S
+                              in BITS_CASES] + ["explicit"])
+def test_fields_kernels_edges_equal_twins(dev, case):
+    """Kernels B and F (and B explicit, the last case) under their fields
+    contract, out of pre-filled buffers, at their edges: every block
+    pattern, nblk of 1, 2 and 3 (mod 4) and a single block, all-zero
+    blocks, blocks ending at slot 63, long ZRL runs, ACs of +-2047 and DC
+    differences of +-4094, explicit padding blocks, and a random LUT whose
+    NULL entry is not empty; D placing B's own fields."""
+    lut = torch.from_numpy(host_constants(None)["lut"]).to(dev)
+    rng = np.random.default_rng(89 + case)
+    picked = BITS_CASES[case:case + 1] or BITS_CASES[:1]
+    checks = bits_cases(dev, rng, lut, picked)
+    names = (["symbolize_bits_explicit"] if case == len(BITS_CASES)
+             else ["symbolize_bits", "attach_pf"])
+    for name in names:
+        assert checks[name]
+        for label, kernel, plain in checks[name]:
+            for a, b in zip(kernel(), plain()):
+                assert torch.equal(a, b), f"{name}: {label}"
+    if case < len(BITS_CASES):
+        # D on B's own fields, written over all ones (a random LUT)
+        layout, nblk, S = BITS_CASES[case]
+        coef = torch.from_numpy(edge_coefs(rng, S, nblk)).to(dev)
+        rlut = random_lut(rng, dev)
+        fields = fused.symbolize_bits_plain(coef, rlut, layout)
+        got = fused.symbolize_bits(coef, rlut, layout,
+                                   out=prefilled_fields(S, nblk, dev))
+        offs = fused.segment_offsets_plain(fields[2])
+        sw = rows_per_segment(nblk * 64) * 128
+        want = place_plain_streams(*fields[:2], *offs, sw)
+        for a, b in zip(place_checked(*got[:2], *offs, sw), want):
+            assert torch.equal(a, b)

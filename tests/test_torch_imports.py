@@ -114,4 +114,4 @@ def test_kernel_hash_covers_included_headers(tmp_path, monkeypatch):
     (tmp_path / "block_slots.cuh").write_bytes(header + b"// edited\n")
     after = {n: _build._target(n)[1] for n in _build.SOURCES}
     changed = {n for n in before if before[n] != after[n]}
-    assert changed == {"symbolize_bits", "symbolize_fields"}
+    assert changed == {"symbolize_bits", "symbolize_fields", "attach_pf"}

@@ -436,3 +436,89 @@ def test_symbolize_fields_refuses_a_misaligned_hist(fake_launch):
     with pytest.raises(ValueError):
         fused.symbolize_fields(coef, 2, hist=raw[1:].view(2, 1024))
     assert fake_launch == []
+
+
+# kernels B, B explicit and F: (entry point, a call of the wrapper on
+# zero inputs of [S, nblk] blocks with ``out``, the index of ``value``'s
+# pointer among the entry point's arguments)
+_FIELDS_WRAPPERS = {
+    "symbolize_bits": (lambda S, nblk, out: fused.symbolize_bits(
+        torch.zeros((S, nblk, 64), dtype=torch.int16),
+        torch.zeros(1024, dtype=torch.int32), (3, 1), out=out), 2),
+    "symbolize_bits_explicit": (lambda S, nblk, out:
+                                fused.symbolize_bits_explicit(
+        torch.zeros((S, nblk, 64), dtype=torch.int16),
+        torch.zeros((S, nblk), dtype=torch.int32),
+        torch.ones((S, nblk), dtype=torch.int32),
+        torch.zeros(1024, dtype=torch.int32), out=out), 4),
+    "attach_pf": (lambda S, nblk, out: fused.attach_pf(
+        torch.zeros((S, nblk, 64), dtype=torch.int32),
+        torch.zeros((S, 1024), dtype=torch.int32), out=out), 2),
+}
+
+
+def _fields_buffers(S: int, nblk: int, skip: int = 0):
+    """A (value, nbits, bits) ``out`` triple; ``value`` starts ``skip``
+    elements past the start of its own allocation."""
+    value = torch.empty(S * nblk * 64 + skip, dtype=torch.int32)[skip:]
+    return (value.view(torch.uint32).view(S, nblk, 64),
+            torch.empty((S, nblk, 64), dtype=torch.uint8),
+            torch.empty((S, nblk), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("given_out", [False, True])
+@pytest.mark.parametrize("kernel", list(_FIELDS_WRAPPERS))
+def test_fields_wrappers_hand_one_allocation_or_out(fake_launch, kernel,
+                                                    given_out):
+    """B's, B explicit's and F's wrappers hand their kernel value, nbits
+    and bits as views of one fresh allocation (value first, 16-byte
+    aligned, then nbits, then bits), or the caller's ``out`` triple as it
+    is, then the shape arguments."""
+    call, at = _FIELDS_WRAPPERS[kernel]
+    S, nblk = 3, 6
+    out = _fields_buffers(S, nblk) if given_out else None
+    value, nbits, bits = call(S, nblk, out)
+    (name, args), = fake_launch
+    assert name == kernel
+    assert args[at:at + 3] == (value.data_ptr(), nbits.data_ptr(),
+                               bits.data_ptr())
+    assert value.shape == nbits.shape == (S, nblk, 64)
+    assert bits.shape == (S, nblk)
+    assert (value.dtype, nbits.dtype, bits.dtype) == (
+        torch.uint32, torch.uint8, torch.int32)
+    assert value.data_ptr() % 16 == 0
+    if given_out:
+        assert all(a is b for a, b in zip((value, nbits, bits), out))
+    else:
+        base = value.untyped_storage().data_ptr()
+        assert value.data_ptr() == base
+        assert nbits.data_ptr() == base + 4 * S * nblk * 64
+        assert bits.data_ptr() == base + 5 * S * nblk * 64
+        assert nbits.untyped_storage().data_ptr() == base
+        assert bits.untyped_storage().data_ptr() == base
+        assert value.untyped_storage().nbytes() == 81 * 4 * S * nblk
+    tail = args[at + 3:]
+    assert tail == ({"symbolize_bits": (S, nblk, 3, 1),
+                     "symbolize_bits_explicit": (S, nblk),
+                     "attach_pf": (S, 1, nblk)}[kernel])
+
+
+@pytest.mark.parametrize("fault", ["misaligned", "shape", "dtype",
+                                   "strided"])
+@pytest.mark.parametrize("kernel", list(_FIELDS_WRAPPERS))
+def test_fields_wrappers_refuse_a_bad_out(fake_launch, kernel, fault):
+    """A misaligned ``value`` (its 16-byte stores), a mis-shaped or
+    mistyped buffer, or a strided one is refused before any launch."""
+    call, _ = _FIELDS_WRAPPERS[kernel]
+    S, nblk = 2, 4
+    value, nbits, bits = _fields_buffers(
+        S, nblk, skip=1 if fault == "misaligned" else 0)
+    if fault == "shape":
+        bits = torch.empty((S, nblk + 1), dtype=torch.int32)
+    elif fault == "dtype":
+        nbits = torch.empty((S, nblk, 64), dtype=torch.int32)
+    elif fault == "strided":
+        nbits = torch.empty((S, nblk, 128), dtype=torch.uint8)[..., ::2]
+    with pytest.raises((ValueError, TypeError)):
+        call(S, nblk, (value, nbits, bits))
+    assert fake_launch == []
