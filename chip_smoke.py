@@ -103,6 +103,19 @@ Phases, each of which raises (and so exits non-zero) on any failure:
       launched; the rounds are printed), its zz must equal the native
       decoder's and its pixels be within jpeg_tpu's bound of the CPU path
       and the golden decoder.
+   g. ``FastBatchEncoder.encode_stream`` (CUDA streams, pinned host
+      buffers) of 8 batches of 16x640x640 and of 4x1920x1280, fixed and
+      dynamic, at depths 4 and 2 (batch 5 uniform random, the last batch
+      half the images): every batch's files must equal ``encode_batch``'s
+      on the card, in order, and the heavy batch's first two the CPU
+      path's; then ``BucketedEncoder.encode_any`` of 640x640, 1920x1280,
+      1919x1079 and 640x640 images against the CPU path, each file
+      decoded at its true size.
+   h. progressive encode at 1920x1280: ``encode_progressive`` (A, F's
+      one-LUT mode, C, D) fixed and dynamic, ``encode_progressive_script``
+      (``SUCCESSIVE_SCRIPT``: A, then host fields and packing) fixed and
+      dynamic, and ``encode_progressive`` f64 (dynamic): bytes equal to
+      the CPU path's, an SOF2 marker, and the golden decoder's PSNR.
    The JPEG bytes must equal those of the same call on the CPU (the plain
    twins; a batch of 3a-3c compares its first 4 images, since each
    image's tables are its own), the first file of each run must decode
@@ -110,7 +123,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    ``golden.decoder`` at PSNR > 28 dB, the dynamic files' DHT segments
    must differ from the fixed tables', and the restart files must carry
    DRI and RSTn markers (3-scan: a DRI per scan);
-4. timings: the median of ``--runs`` warm runs of the device step (fixed)
+4. timings: per stream case of 3g, ms a batch streamed at each depth and
+   as ``encode_batch`` on the same batches, in turns, with the device
+   idle share over each, and each progressive case's call ms and idle
+   share (a quarter of ``--runs`` each); the median of ``--runs`` warm
+   runs of the device step (fixed)
    or ``dynamic_pack`` (dynamic) and of ``encode_batch`` per geometry and
    mode, the dynamic path's host split, ``JpegEncoder.encode`` per mode
    and geometry with its device time and idle share, the K.2 build of one
@@ -158,9 +175,11 @@ import time
 import numpy as np
 import torch
 
-from jpeg_tpu_torch import (Area, EncodeConfig, FastBatchEncoder, JpegEncoder,
-                            _build, decode_jpeg, decode_jpeg_batch,
-                            encode_gray, native)
+from jpeg_tpu_torch import (Area, BucketedEncoder, EncodeConfig,
+                            FastBatchEncoder, JpegEncoder, _build,
+                            decode_jpeg, decode_jpeg_batch, encode_gray,
+                            encode_progressive, encode_progressive_script,
+                            native)
 from jpeg_tpu_torch.bitstream import jfif
 from jpeg_tpu_torch.golden import decoder as golden
 from jpeg_tpu_torch.golden import encoder as golden_enc
@@ -321,6 +340,28 @@ KERNEL_INFO = {
     "scan_positions": ("jpeg_tpu_torch/csrc/huffdec.cu",
                        "jpeg_tpu/kernels/huffdec.py:761 (K17)"),
 }
+
+# the stream (phase 3g): (batch, height, width) of STREAM_BATCHES batches a
+# run, streamed in each of STREAM_MODES at each of STREAM_DEPTHS; batch
+# STREAM_HEAVY of each run is uniform random (the largest streams) and the
+# last holds half the images; BucketedEncoder.encode_any on a mixed list
+# of (height, width)
+STREAM_GEOMETRIES = [(16, 640, 640), (4, 1280, 1920)]
+STREAM_BATCHES = 8
+STREAM_HEAVY = 5
+STREAM_MODES = ["fixed", "dynamic"]
+STREAM_DEPTHS = [4, 2]
+BUCKET_LIST = [(640, 640), (1280, 1920), (1079, 1919), (640, 640)]
+# progressive (phase 3h): (label, engine, Huffman mode, dtype) at
+# PROGRESSIVE_SIZE; the kernels each engine's path launches
+PROGRESSIVE_SIZE = (1280, 1920)
+PROGRESSIVE_CASES = [
+    ("spectral fixed", "spectral", "fixed", "float32"),
+    ("spectral dynamic", "spectral", "dynamic", "float32"),
+    ("script fixed (SUCCESSIVE_SCRIPT)", "script", "fixed", "float32"),
+    ("script dynamic (SUCCESSIVE_SCRIPT)", "script", "dynamic", "float32"),
+    ("spectral dynamic f64", "spectral", "dynamic", "float64")]
+SPECTRAL_PATH = ("front_dct", "attach_pf", "segment_offsets", "place")
 
 # the kernels timed at the shapes of the f64 batch
 F64_KERNELS = ("symbolize_bits_explicit", "symbolize_fields_explicit",
@@ -917,6 +958,178 @@ def check_f64_case(case: dict, files: list[bytes], fixed_dht) -> str:
         parts.append(f"{same}/{len(want)} files byte-identical to {what}")
     return (f"{case['label']}: " + ", ".join(parts) + ", "
             + check_files(case, files, fixed_dht))
+
+
+def stream_cases(rng: np.random.Generator) -> list[dict]:
+    """The runs of phase 3g: per geometry, its ``batches`` (u8 host
+    arrays; batch ``STREAM_HEAVY`` uniform random, the last with half the
+    images) and ``label``."""
+    cases = []
+    for b, h, w in STREAM_GEOMETRIES:
+        batches = [synthetic_batch(rng, b, h, w)
+                   for _ in range(STREAM_BATCHES - 1)]
+        batches[STREAM_HEAVY] = rng.integers(0, 256, (b, h, w, 3), np.uint8)
+        batches.append(synthetic_batch(rng, b // 2, h, w))
+        cases.append({"label": f"{STREAM_BATCHES} batches of {b}x{h}x{w}",
+                      "geometry": (b, h, w), "batches": batches})
+    return cases
+
+
+def stream_phase(cases: list[dict], dev, launches: dict) -> list[tuple]:
+    """Phase 3g: ``encode_stream`` of each case in each mode and depth,
+    with the counts reset just before each stream, against
+    ``encode_batch`` on the card (and the heavy batch's first two images
+    against the CPU path); then ``BucketedEncoder.encode_any``.  Returns
+    the runs phase 4 times: (label, encoder, batches)."""
+    runs = []
+    for case in cases:
+        b, h, w = case["geometry"]
+        batches = case["batches"]
+        for mode in STREAM_MODES:
+            enc = FastBatchEncoder(h, w, config(mode), device=dev)
+            want = [enc.encode_batch(bt) for bt in batches]
+            heavy = batches[STREAM_HEAVY][:2]
+            ref = FastBatchEncoder(h, w, config(mode),
+                                   device="cpu").encode_batch(heavy)
+            if want[STREAM_HEAVY][:2] != ref:
+                raise AssertionError(f"stream {case['label']} {mode}: the "
+                                     f"heavy batch's card and CPU bytes "
+                                     f"differ")
+            for depth in STREAM_DEPTHS:
+                label = f"encode_stream {mode} {case['label']} depth {depth}"
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                got = list(enc.encode_stream(iter(batches), depth))
+                counts = launch_counts()
+                print(f"main path {label}: launches {json.dumps(counts)}")
+                for name in (FIXED_PATH if mode == "fixed"
+                             else DYNAMIC_PATH):
+                    if counts[name] <= 0:
+                        raise AssertionError(f"kernel {name} was not "
+                                             f"launched on {label}")
+                for name, n in counts.items():
+                    launches[name] += n
+                same = sum(g == x for g, x in zip(got, want))
+                if len(got) != len(want) or same != len(want):
+                    raise AssertionError(f"{label}: {same} of {len(want)} "
+                                         f"batches equal encode_batch's")
+                print(f"  {label}: {same}/{len(want)} batches' files equal "
+                      f"encode_batch's on the card, in order (batch "
+                      f"{STREAM_HEAVY} uniform random, its first 2 files "
+                      f"equal to the CPU path's; the last batch "
+                      f"{len(batches[-1])} images), "
+                      f"{sum(len(f) for fs in got for f in fs)} bytes")
+            runs.append((f"{mode} {case['label']}", enc, batches))
+    rng = np.random.default_rng(len(cases))
+    imgs = [synthetic_batch(rng, 1, h, w)[0] for h, w in BUCKET_LIST]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    files = BucketedEncoder(device=dev).encode_any(imgs)
+    counts = launch_counts()
+    label = ("BucketedEncoder.encode_any fixed "
+             + ", ".join(f"{w}x{h}" for h, w in BUCKET_LIST))
+    print(f"main path {label}: launches {json.dumps(counts)}")
+    for name in FIXED_PATH:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on {label}")
+    for name, n in counts.items():
+        launches[name] += n
+    if files != BucketedEncoder(device="cpu").encode_any(imgs):
+        raise AssertionError(f"{label}: card and CPU bytes differ")
+    for img, data in zip(imgs, files):
+        dec = golden.decode(data)
+        if dec.shape != img.shape or not golden.psnr(img, dec) > MIN_PSNR_DB:
+            raise AssertionError(f"{label}: a {img.shape} file decodes to "
+                                 f"{dec.shape} at {golden.psnr(img, dec)} dB")
+    print(f"  {label}: {len(files)}/{len(files)} files byte-identical to the "
+          f"CPU plain path, each decodes (golden) at its size above "
+          f"{MIN_PSNR_DB} dB")
+    return runs
+
+
+def progressive_call(engine: str, mode: str, dtype: str, img, dev):
+    """One progressive encode of ``img`` on ``dev`` -> its file."""
+    fn = encode_progressive if engine == "spectral" else \
+        encode_progressive_script
+    return fn(img, EncodeConfig(huffman=mode, dtype=dtype), device=dev)
+
+
+def progressive_phase(rng: np.random.Generator, dev,
+                      launches: dict) -> list[tuple]:
+    """Phase 3h: each progressive case on the card, its counts reset just
+    before it, against the CPU path's bytes and the golden decoder.
+    Returns the runs phase 4 times: (label, call)."""
+    img = synthetic_batch(rng, 1, *PROGRESSIVE_SIZE)[0]
+    runs = []
+    for label, engine, mode, dtype in PROGRESSIVE_CASES:
+        label = (f"progressive {label} {PROGRESSIVE_SIZE[1]}x"
+                 f"{PROGRESSIVE_SIZE[0]}")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        data = progressive_call(engine, mode, dtype, img, dev)
+        counts = launch_counts()
+        print(f"main path {label}: launches {json.dumps(counts)}")
+        kernels = SPECTRAL_PATH if engine == "spectral" else ("front_dct",)
+        for name in kernels:
+            if dtype == "float64" and name == "front_dct":
+                continue  # the f64 exact ops replace A
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on "
+                                     f"{label}")
+        for name, n in counts.items():
+            launches[name] += n
+        if data != progressive_call(engine, mode, dtype, img, "cpu"):
+            raise AssertionError(f"{label}: card and CPU bytes differ")
+        if b"\xff\xc2" not in data:
+            raise AssertionError(f"{label}: no SOF2 marker")
+        dec = golden.decode(data)
+        quality_db = golden.psnr(img, dec)
+        if dec.shape != img.shape or not quality_db > MIN_PSNR_DB:
+            raise AssertionError(f"{label}: golden decode {dec.shape} at "
+                                 f"{quality_db:.2f} dB")
+        print(f"  {label}: byte-identical to the CPU plain path, {len(data)} "
+              f"bytes, {data.count(bytes([0xFF, 0xDA]))} scans, golden "
+              f"decode (SOF2) PSNR {quality_db:.2f} dB")
+        runs.append((label, functools.partial(progressive_call, engine, mode,
+                                              dtype, img, dev)))
+    return runs
+
+
+def stream_timings(stream_runs, progressive_runs, card: str,
+                   runs: int) -> None:
+    """Phase 4 for 3g and 3h: per stream case, ms per batch streamed at
+    each depth and as ``encode_batch`` (the same batches, same run), and
+    the device idle share over each; each progressive case's call ms and
+    idle share."""
+    for label, enc, batches in stream_runs:
+        n = len(batches)
+
+        def batch_loop():
+            return [enc.encode_batch(bt) for bt in batches]
+
+        def streamed(depth):
+            return lambda: list(enc.encode_stream(iter(batches), depth))
+        fns = [("encode_batch", batch_loop)] + [
+            (f"encode_stream depth {d}", streamed(d)) for d in STREAM_DEPTHS]
+        # in turns (batch, streams, streams, batch), so drift hits alike
+        first = [host_ms(fn, runs) for _, fn in fns]
+        second = [host_ms(fn, runs) for _, fn in reversed(fns)][::-1]
+        parts = []
+        for (what, fn), a, b in zip(fns, first, second):
+            idle = device_profile(fn, max(2, runs // 2))[1]
+            parts.append(f"{what} {(a + b) / 2 / n:.4f} ms a batch "
+                         f"({a / n:.4f}, {b / n:.4f}), idle share "
+                         f"{idle:.4f}")
+        print(f"timing stream {label} on [{card}]: " + "; ".join(parts)
+              + f"; median of {runs} runs of {n} batches")
+    for label, fn in progressive_runs:
+        call_ms = host_ms(fn, runs)
+        per_call, idle = device_profile(fn, max(2, runs // 2))
+        print(f"timing {label} on [{card}]: {call_ms:.4f} ms a call; median "
+              f"of {runs}; device µs per call (torch.profiler) "
+              f"{sum(per_call.values()):.2f}, idle share {idle:.4f}; by name: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                  per_call.items(), key=lambda kv: -kv[1])[:6]))
 
 
 def device_profile(fn, runs: int) -> tuple[dict[str, float], float]:
@@ -2565,7 +2778,21 @@ def main() -> int:
     print(f"phase 3f (speculative decode) took "
           f"{time.perf_counter() - t_spec:.1f} s")
 
+    # -- phase 3g: encode_stream and BucketedEncoder, each stream its own
+    # path ---------------------------------------------------------------------
+    t_stream = time.perf_counter()
+    stream_runs = stream_phase(
+        stream_cases(np.random.default_rng(args.seed + 13)), dev, launches)
+    print(f"phase 3g (stream) took {time.perf_counter() - t_stream:.1f} s")
+
+    # -- phase 3h: progressive encode, each call its own path ----------------
+    t_prog = time.perf_counter()
+    progressive_runs = progressive_phase(
+        np.random.default_rng(args.seed + 14), dev, launches)
+    print(f"phase 3h (progressive) took {time.perf_counter() - t_prog:.1f} s")
+
     # -- phase 4: timings ----------------------------------------------------
+    stream_timings(stream_runs, progressive_runs, card, max(3, args.runs // 4))
     for mode in MODES:
         for (b, h, w, r), bt, e in zip(GEOMETRIES, batches, encoders[mode]):
             xd = torch.from_numpy(bt).to(dev)

@@ -3,7 +3,13 @@
 * ``FastBatchEncoder``: the interleaved-scan batch encode at 4:2:0, 4:2:2
   and 4:4:4 with fixed (T.81 Annex K.3), dynamic and dynamic-sampled
   Huffman tables, in f32 and the f64 exact mode, byte-identical to
-  ``jpeg_tpu.pipelines.fast.FastBatchEncoder``.
+  ``jpeg_tpu.pipelines.fast.FastBatchEncoder``; its ``encode_stream``
+  overlaps batches on CUDA streams with pinned host buffers.
+* ``BucketedEncoder`` (``encode``, ``encode_any``): mixed resolutions, one
+  ``FastBatchEncoder`` per geometry (``jpeg_tpu.pipelines.bucket``).
+* ``encode_progressive`` and ``encode_progressive_script``: progressive
+  (SOF2) files, spectral selection and successive approximation
+  (``jpeg_tpu.pipelines.progressive``).
 * ``JpegEncoder`` (``encode``, ``encode_batch``, ``encode_any``,
   ``encode_region``), ``encode_jpeg`` and ``encode_gray``: the one-shot
   API of ``jpeg_tpu.pipelines.encode`` in both scan layouts ("3scan", the
@@ -30,9 +36,13 @@ its own copies of the host code it needs (``core``, ``huffman``,
 ``bitstream``, ``golden`` and the C++ runtime under ``native``).
 """
 from .core.types import Area, EncodeConfig  # noqa: F401
+from .pipelines.bucket import BucketedEncoder  # noqa: F401
 from .pipelines.decode import decode_jpeg, decode_jpeg_batch  # noqa: F401
 from .pipelines.encode import JpegEncoder, encode_gray, encode_jpeg  # noqa: F401
 from .pipelines.fast import FastBatchEncoder  # noqa: F401
+from .pipelines.progressive import (encode_progressive,  # noqa: F401
+                                    encode_progressive_script)
 
-__all__ = ["Area", "EncodeConfig", "FastBatchEncoder", "JpegEncoder",
-           "decode_jpeg", "decode_jpeg_batch", "encode_gray", "encode_jpeg"]
+__all__ = ["Area", "BucketedEncoder", "EncodeConfig", "FastBatchEncoder",
+           "JpegEncoder", "decode_jpeg", "decode_jpeg_batch", "encode_gray",
+           "encode_jpeg", "encode_progressive", "encode_progressive_script"]

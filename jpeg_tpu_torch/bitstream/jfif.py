@@ -1,9 +1,10 @@
-"""JFIF marker stream emission for baseline files.
+"""JFIF marker stream emission for baseline and progressive files.
 
-The port's own copy of the baseline parts of ``jpeg_tpu.bitstream.jfif``:
-SOI/APP0/DQT/DHT/SOF0/DRI, the interleaved and single-component SOS
-headers, RSTn and EOI, the grayscale header, the SOF size patch, and the
-3-scan and interleaved assembly.  Bytes equal the original's
+The port's own copy of ``jpeg_tpu.bitstream.jfif``: SOI/APP0/DQT/DHT/
+SOF0/DRI, the interleaved and single-component SOS headers, RSTn and EOI,
+the grayscale header, the SOF size patch, the 3-scan and interleaved
+assembly, and the progressive writers (SOF2, the DC and AC band SOS
+headers, ``assemble_progressive``).  Bytes equal the original's
 (``tests/test_torch_host.py``).
 """
 from __future__ import annotations
@@ -95,19 +96,30 @@ def rst_marker(index: int) -> bytes:
 def headers(width: int, height: int, luma_q: np.ndarray,
             chroma_q: np.ndarray, tables: dict[str, HuffmanTable],
             restart_interval: int = 0,
-            y_sampling: tuple[int, int] = (2, 2)) -> bytes:
-    """Everything from SOI up to (excluding) the first SOS."""
+            y_sampling: tuple[int, int] = (2, 2),
+            progressive: bool = False,
+            include_dht: bool = True) -> bytes:
+    """Everything from SOI up to (excluding) the first SOS.
+
+    ``progressive=True`` emits SOF2 instead of SOF0; ``include_dht=False``
+    leaves out the table segments (per-scan DHTs follow instead).
+    """
+    sof = (sof2_segment if progressive else sof0_segment)(
+        width, height, y_sampling=y_sampling)
     out = [
         SOI,
         APP0,
         dqt_segment(0, luma_q),
         dqt_segment(1, chroma_q),
-        dht_segment(0x00, tables["luma_dc"]),
-        dht_segment(0x10, tables["luma_ac"]),
-        dht_segment(0x01, tables["chroma_dc"]),
-        dht_segment(0x11, tables["chroma_ac"]),
-        sof0_segment(width, height, y_sampling=y_sampling),
     ]
+    if include_dht:
+        out += [
+            dht_segment(0x00, tables["luma_dc"]),
+            dht_segment(0x10, tables["luma_ac"]),
+            dht_segment(0x01, tables["chroma_dc"]),
+            dht_segment(0x11, tables["chroma_ac"]),
+        ]
+    out.append(sof)
     if restart_interval:
         out.append(dri_segment(restart_interval))
     return b"".join(out)
@@ -126,6 +138,47 @@ def headers_gray(width: int, height: int, luma_q, tables,
     ]
     if restart_interval:
         out.append(dri_segment(restart_interval))
+    return b"".join(out)
+
+
+def sof2_segment(width: int, height: int,
+                 y_sampling: tuple[int, int] = (2, 2)) -> bytes:
+    """Progressive DCT SOF2 (same payload layout as SOF0)."""
+    seg = bytearray(sof0_segment(width, height, y_sampling=y_sampling))
+    seg[1] = 0xC2
+    return bytes(seg)
+
+
+def sos_header_progressive_dc(ah: int = 0, al: int = 0) -> bytes:
+    """Interleaved 3-component DC scan (Ss=Se=0); Ah/Al for successive
+    approximation (Ah=0 first scan, Ah=Al+1 refinement)."""
+    return bytes([0xFF, 0xDA, 0x00, 0x0C, 0x03,
+                  0x01, 0x00, 0x02, 0x11, 0x03, 0x11,
+                  0x00, 0x00, ((ah & 0x0F) << 4) | (al & 0x0F)])
+
+
+def sos_header_progressive_ac(component_id: int, ac_table: int,
+                              ss: int = 1, se: int = 63,
+                              ah: int = 0, al: int = 0) -> bytes:
+    """Single-component AC band scan (progressive AC scans must be
+    non-interleaved, T.81 G.1.1.1.1)."""
+    return bytes([0xFF, 0xDA, 0x00, 0x08, 0x01, component_id,
+                  (ac_table & 0x0F), ss, se,
+                  ((ah & 0x0F) << 4) | (al & 0x0F)])
+
+
+def assemble_progressive(header: bytes, dc_scan: bytes,
+                         ac_scans: list[tuple[int, int, int, int, bytes]]
+                         ) -> bytes:
+    """SOF2 stream: one interleaved DC scan, then AC band scans.
+
+    ``ac_scans`` entries are (component_id, ac_table, ss, se, payload).
+    """
+    out = [header, sos_header_progressive_dc(), dc_scan]
+    for cid, tab, ss, se, payload in ac_scans:
+        out.append(sos_header_progressive_ac(cid, tab, ss, se))
+        out.append(payload)
+    out.append(EOI)
     return b"".join(out)
 
 

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "jt_build_huff_tables": [_I64P, _I64, _I32P, _I32P, _I32P, _I32P],
     "jt_decode_scan_mt": [_U8P, _I64, _I64, _I32P, _I32P, _I32P, _I64, _I32P,
                           _I32P, _I64, _I64, _I64, _I64, _I32P],
+    "jt_ac_refine_fields": [_I32P, _I64, _I64, _I64, _I64, _I64, _I32P,
+                            _I32P, _I32P],
 }
 
 
@@ -188,3 +190,23 @@ def decode_scan(data: bytes, start: int, dc_specs: np.ndarray,
     if end < 0:
         raise ValueError("malformed entropy-coded segment")
     return out, int(end)
+
+
+def ac_refine_fields(band: np.ndarray, al: int, max_run: int,
+                     max_buffer: int):
+    """Successive-approximation AC refinement coder (T.81 G.1.2.3).
+
+    band: [n, w] band coefficients (not shifted).  Returns (sym, extra,
+    extra_n) int32 arrays; sym -1 marks a raw correction bit.
+    """
+    lib = load()
+    b = np.ascontiguousarray(band, dtype=np.int32)
+    n, w = b.shape
+    cap = n * (w + w // 16 + 2) + 8
+    sym = np.empty(cap, np.int32)
+    extra = np.empty(cap, np.int32)
+    extra_n = np.empty(cap, np.int32)
+    m = lib.jt_ac_refine_fields(_ptr(b, _I32P), n, w, int(al), int(max_run),
+                                int(max_buffer), _ptr(sym, _I32P),
+                                _ptr(extra, _I32P), _ptr(extra_n, _I32P))
+    return sym[:m], extra[:m], extra_n[:m]

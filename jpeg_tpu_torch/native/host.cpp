@@ -3,7 +3,8 @@
 //
 // The port's own copy of the parts of jpeg_tpu's native/jpeg_tpu_host.cpp
 // that the port uses (jt_finish_scan(s), jt_assemble_interleaved,
-// jt_build_huff_tables, and the baseline scan decoder jt_decode_scan(_mt));
+// jt_build_huff_tables, the baseline scan decoder jt_decode_scan(_mt), and
+// the progressive encode's AC refinement coder jt_ac_refine_fields);
 // outputs equal the original's byte for byte (tests/test_torch_host.py).
 //
 // The device produces each entropy segment as big-endian-packed u32 words
@@ -596,6 +597,97 @@ int64_t jt_decode_scan_mt(const uint8_t* data, int64_t len, int64_t start,
   for (auto& w : workers) w.join();
   if (failed.load()) return -1;
   return end_pos.load();
+}
+
+// Successive-approximation AC refinement field coder (T.81 G.1.2.3):
+// one correction bit per nonzero-history coefficient, newly-significant
+// coefficients as run-coded +-1, correction bits buffered across EOB
+// runs — the serial per-band emission order that keeps this on the host
+// (pipelines/progressive.py::ac_refine_fields_plain is its plain version,
+// which the tests hold it to element for element; no path falls back).
+//
+// band:    [n, w] int32 band coefficients (zz[:, ss:se+1], NOT shifted).
+// al, ah:  successive approximation bit positions (ah == al + 1).
+// max_run: EOBRUN cap (0x7FFF dynamic tables, 1 fixed).
+// max_buf: buffered-correction-bit flush cap (_MAX_REFINE_BUFFER).
+// sym/extra/extra_n: outputs; sym -1 means raw extra_n bits of extra.
+//   Caller sizes them at n*(w + w/16 + 2) + 8 entries.
+// returns  emitted field count.
+int64_t jt_ac_refine_fields(const int32_t* band, int64_t n, int64_t w,
+                            int64_t al, int64_t max_run, int64_t max_buf,
+                            int32_t* sym, int32_t* extra,
+                            int32_t* extra_n) {
+  int64_t m = 0;
+  int64_t eobrun = 0;
+  std::vector<int32_t> be;  // correction bits buffered across the EOB run
+  std::vector<int32_t> br;  // correction bits buffered within a block run
+  be.reserve(1024);
+  br.reserve(64);
+  auto emit_sym = [&](int32_t s, int32_t e, int32_t en) {
+    sym[m] = s; extra[m] = e; extra_n[m] = en; ++m;
+  };
+  auto emit_bit = [&](int32_t v) {
+    sym[m] = -1; extra[m] = v; extra_n[m] = 1; ++m;
+  };
+  auto flush_eobrun = [&]() {
+    if (!eobrun) return;
+    int r = 0;
+    while ((int64_t(1) << (r + 1)) <= eobrun) ++r;
+    emit_sym(r << 4, static_cast<int32_t>(eobrun - (int64_t(1) << r)), r);
+    for (int32_t b : be) emit_bit(b);
+    be.clear();
+    eobrun = 0;
+  };
+  for (int64_t blk = 0; blk < n; ++blk) {
+    const int32_t* row = band + blk * w;
+    int64_t eob = -1;
+    bool has_any = false;
+    for (int64_t k = 0; k < w; ++k) {
+      int32_t t = (row[k] < 0 ? -row[k] : row[k]) >> al;
+      if (t) {
+        has_any = true;
+        if (t == 1) eob = k;
+      }
+    }
+    if (!has_any) {
+      if (++eobrun == max_run) flush_eobrun();
+      continue;
+    }
+    int r = 0;
+    br.clear();
+    for (int64_t k = 0; k < w; ++k) {
+      int32_t t = (row[k] < 0 ? -row[k] : row[k]) >> al;
+      if (t == 0) {
+        ++r;
+        continue;
+      }
+      while (r > 15 && k <= eob) {
+        flush_eobrun();
+        r -= 16;
+        emit_sym(0xF0, 0, 0);
+        for (int32_t b : br) emit_bit(b);
+        br.clear();
+      }
+      if (t > 1) {
+        br.push_back(t & 1);
+        continue;
+      }
+      flush_eobrun();
+      emit_sym((r << 4) | 1, row[k] > 0 ? 1 : 0, 1);
+      for (int32_t b : br) emit_bit(b);
+      br.clear();
+      r = 0;
+    }
+    if (r > 0 || !br.empty()) {
+      ++eobrun;
+      be.insert(be.end(), br.begin(), br.end());
+      if (eobrun == max_run || static_cast<int64_t>(be.size()) > max_buf) {
+        flush_eobrun();
+      }
+    }
+  }
+  flush_eobrun();
+  return m;
 }
 
 }  // extern "C"

@@ -6,6 +6,7 @@ AC slot carries ``run << 4 | class`` and its amplitude; a zero slot that
 ends a run of 16 before a later nonzero is a ZRL (0xF0); the slot after
 the last nonzero AC is the EOB (0x00) unless that was slot 63.  Every
 other slot is invalid and gets ``NULL_INDEX`` (zero bits).
+``histogram_256`` is ``jpeg_tpu.ops.symbols``' symbol histogram.
 """
 from __future__ import annotations
 
@@ -75,3 +76,9 @@ def symbolize_explicit(coef: torch.Tensor, dcd: torch.Tensor,
     extra = torch.where(valid, extra, zero)
     extra_n = torch.where(valid, extra_n, zero)
     return idx, extra, extra_n
+
+
+def histogram_256(sym: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """[256] int64 histogram of ``sym`` over the slots where ``valid``."""
+    return torch.bincount(sym.reshape(-1)[valid.reshape(-1)].long(),
+                          minlength=256)

@@ -36,6 +36,8 @@ take its Pallas front (4:4:4 widths that are a multiple of 8 but not of
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -221,7 +223,10 @@ class FastBatchEncoder:
         uint32, total_bits [B, S] int32), both on ``self.device``."""
         if self._fixed is None:
             raise ValueError("step() requires huffman='fixed'")
-        x = self._check_batch(rgbs)
+        return self._step(self._check_batch(rgbs))
+
+    def _step(self, x: torch.Tensor):
+        """``step`` of a checked [B, H, W*3] batch on ``self.device``."""
         B, S = x.shape[0], self.n_segs
         if self._exact:
             words, totals = fused.analyze_attach_pack_segments(
@@ -259,14 +264,82 @@ class FastBatchEncoder:
             words, totals, tables = self.dynamic_pack(rgbs)
         return self._assemble(*self._fetch(words, totals), tables)
 
+    def encode_stream(self, batches, sync_depth: int = 4):
+        """Pipelined multi-batch encode: yields, for each batch of
+        ``batches`` in turn, the list of files ``encode_batch`` gives it.
+
+        On the card, the device work of later batches is enqueued before
+        the host fetches and assembles an earlier one: fixed tables enqueue
+        a batch's ``step`` (A, B, C, D) whole; dynamic tables enqueue its
+        A and E, and the host runs the previous batch's K.2 builds and
+        LUTs while they run, then enqueues that batch's F, C and D behind
+        them.  Inputs and LUTs go up from pinned host buffers
+        (``non_blocking``); the totals, the histograms and each batch's
+        used word prefix come down on two side streams into pinned
+        buffers, each copy ordered after the compute by an event, and the
+        host waits on those events alone.  All kernels run on the stream
+        current when the first batch arrives, so kernels C and E keep one
+        cached workspace each (``kernels.fused._workspace``) and no launch
+        reads a workspace that another is still re-zeroing.
+
+        Depth: at most ``sync_depth`` batches are in flight (enqueued and
+        not yet yielded).  Each needs about its worst-case words buffer,
+        its input and 16 bytes a coefficient slot of intermediate fields
+        (32 a slot more in the f64 exact mode) on the card; the depth is
+        cut to the number of such batches that fit in the card's free
+        memory (``torch.cuda.mem_get_info``) when the batch is enqueued,
+        and is never below 1 (``sync_depth=1`` runs batches one by one).
+
+        On the CPU the same order of stages runs without streams or pinned
+        buffers.  Not carried over from ``jpeg_tpu`` (answers to a TPU
+        link's round trips and a 16 GB chip): the caps prediction and its
+        ratchet (``_pred_caps``, ``_caps_of``' headroom), ``_CAP_BUCKET``,
+        ``_SLICE_CACHE_MAX``, the jitted ``_flat_slice`` executables and
+        ``_split_flat``, the background histogram thread, and
+        ``_STREAM_BUDGET_BYTES``: the word prefix is fetched after the
+        totals, per batch, on a copy stream that overlaps later batches'
+        kernels.
+        """
+        run = _StreamRun(self)
+        analyzed, packed = [], []  # oldest first
+        for rgbs in batches:
+            x = self._flat(rgbs)
+            depth = self._stream_depth(x.shape[0], sync_depth)
+            while len(analyzed) + len(packed) >= depth:
+                if not packed:
+                    packed.append(run.pack(analyzed.pop(0)))
+                yield run.finish(packed.pop(0))
+            job = run.submit(x)
+            if self._fixed is not None:
+                packed.append(job)
+                continue
+            analyzed.append(job)
+            if len(analyzed) > 1:
+                packed.append(run.pack(analyzed.pop(0)))
+        packed += [run.pack(job) for job in analyzed]
+        for job in packed:
+            yield run.finish(job)
+
+    def _stream_depth(self, n_images: int, sync_depth: int) -> int:
+        """``encode_stream``'s depth for a batch of ``n_images`` (see its
+        docstring)."""
+        depth = max(sync_depth, 1)
+        if self.device.type != "cuda":
+            return depth
+        slots = self.n_segs * self.blocks_per_seg * 64
+        per_image = (self.n_segs * self.seg_rows * 128 * 4
+                     + self.height * self.width * 3
+                     + slots * (48 if self._exact else 16))
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return max(1, min(depth, free // (n_images * per_image)))
+
     @staticmethod
     def _fetch(words: torch.Tensor, totals: torch.Tensor):
         """Device words [..., seg_words] and totals [...] -> host (words
         [..., cap] uint32, totals int32), fetching only the used prefix of
         every segment's words."""
         totals_np = totals.cpu().numpy()
-        used = (int(totals_np.max(initial=0)) + 31) // 32 + 1
-        cap = min(used, words.shape[-1])
+        cap = _used_words(totals_np, words.shape[-1])
         return words[..., :cap].cpu().numpy(), totals_np
 
     def _assemble(self, words_np: np.ndarray, totals_np: np.ndarray,
@@ -361,6 +434,11 @@ class FastBatchEncoder:
     def _check_batch(self, rgbs) -> torch.Tensor:
         """Validate a [B, H, W, 3] or [B, H, W*3] batch -> [B, H, W*3] u8
         contiguous on ``self.device``."""
+        return self._flat(rgbs).to(self.device).contiguous()
+
+    def _flat(self, rgbs) -> torch.Tensor:
+        """Validate a [B, H, W, 3] or [B, H, W*3] batch -> [B, H, W*3] u8,
+        where it lies."""
         if isinstance(rgbs, np.ndarray):
             rgbs = torch.from_numpy(np.ascontiguousarray(rgbs))
         rgbs = torch.as_tensor(rgbs)
@@ -372,4 +450,157 @@ class FastBatchEncoder:
                 raise ValueError(f"batch shape {tuple(rgbs.shape)} != "
                                  f"{self.height}x{self.width}")
             rgbs = rgbs.reshape(rgbs.shape[0], *flat)
-        return rgbs.to(self.device).contiguous()
+        return rgbs
+
+
+def _used_words(totals_np: np.ndarray, seg_words: int) -> int:
+    """The words of every segment that come to the host: those of the
+    longest stream, and one more."""
+    used = (int(totals_np.max(initial=0)) + 31) // 32 + 1
+    return min(used, seg_words)
+
+
+class _Batch:
+    """One batch of ``encode_stream`` on its way through the card: its
+    device tensors, the host copies that are under way, the events they
+    wait on and the pinned buffers lent to it."""
+
+    def __init__(self):
+        self.pf = self.words = self.totals = self.tables = None
+        self.computed = None   # event after the batch's last kernel so far
+        self.hist = self.totals_host = None  # (host tensor, event)
+        self.bufs: list[torch.Tensor] = []
+
+
+class _PinnedPool:
+    """Page-locked host buffers of ``encode_stream``.  A buffer is lent to
+    one batch and comes back only when that batch is finished, after the
+    host has waited on the events of every copy that read or wrote it; so
+    no buffer is refilled while a copy still reads it."""
+
+    def __init__(self):
+        self._free: list[torch.Tensor] = []
+
+    def take(self, job: _Batch, nbytes: int) -> torch.Tensor:
+        """A uint8 buffer of at least ``nbytes``, lent to ``job``."""
+        fits = [i for i, b in enumerate(self._free) if b.numel() >= nbytes]
+        if fits:
+            buf = self._free.pop(min(fits,
+                                     key=lambda i: self._free[i].numel()))
+        else:
+            buf = torch.empty(max(nbytes, 1 << 16), dtype=torch.uint8,
+                              pin_memory=True)
+        job.bufs.append(buf)
+        return buf
+
+    def give_back(self, job: _Batch) -> None:
+        self._free += job.bufs
+        job.bufs = []
+
+
+class _StreamRun:
+    """The stages of one ``FastBatchEncoder.encode_stream``.  On a CUDA
+    device the kernels run on the stream current at the start
+    (``compute``); the histograms and totals come down on ``meta``, the
+    word prefixes on ``fetch``, so that a word copy, which the host
+    enqueues only once it has the totals, never queues behind a copy that
+    waits for later kernels.  On the CPU every copy is a plain one."""
+
+    def __init__(self, enc: FastBatchEncoder):
+        self.enc = enc
+        self.cuda = enc.device.type == "cuda"
+        self.meta = self.fetch = None
+        if self.cuda:
+            self.compute = torch.cuda.current_stream(enc.device)
+            self.meta = torch.cuda.Stream(enc.device)
+            self.fetch = torch.cuda.Stream(enc.device)
+            self.pool = _PinnedPool()
+
+    def _on_compute(self):
+        return (torch.cuda.stream(self.compute) if self.cuda
+                else contextlib.nullcontext())
+
+    def _upload(self, job: _Batch, host: torch.Tensor) -> torch.Tensor:
+        """A host tensor on the device: on the card, through a pinned
+        buffer, enqueued on the compute stream."""
+        if not self.cuda or host.is_cuda:
+            return host.to(self.enc.device).contiguous()
+        n = host.numel() * host.element_size()
+        staged = self.pool.take(job, n)[:n].view(host.dtype).view(host.shape)
+        staged.copy_(host)
+        return staged.to(self.enc.device, non_blocking=True)
+
+    def _mark(self, job: _Batch) -> None:
+        """Record the event after the work enqueued so far for ``job``."""
+        if self.cuda:
+            job.computed = torch.cuda.Event()
+            job.computed.record(self.compute)
+
+    def _download(self, job: _Batch, t: torch.Tensor, stream):
+        """Enqueue the copy of device tensor ``t`` to the host after
+        ``job.computed`` -> (host tensor, its event); read the host tensor
+        only after ``_wait``."""
+        if not self.cuda:
+            return t.cpu(), None
+        stream.wait_event(job.computed)
+        t.record_stream(stream)  # the allocator must not reuse it early
+        n = t.numel() * t.element_size()
+        host = self.pool.take(job, n)[:n].view(t.dtype).view(t.shape)
+        with torch.cuda.stream(stream):
+            host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+        return host, done
+
+    @staticmethod
+    def _wait(copy) -> np.ndarray:
+        host, done = copy
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
+
+    def submit(self, x: torch.Tensor) -> _Batch:
+        """Enqueue a checked batch's first device stage: fixed tables its
+        whole ``step`` and the totals' copy; dynamic ones A and E and the
+        histograms' copy."""
+        job, enc = _Batch(), self.enc
+        with self._on_compute():
+            x = self._upload(job, x.contiguous())
+            if enc._fixed is not None:
+                job.words, job.totals = enc._step(x)
+            else:
+                job.pf, hist = enc._analyze_hist(x)
+        self._mark(job)
+        if enc._fixed is not None:
+            job.totals_host = self._download(job, job.totals, self.meta)
+        else:
+            job.hist = self._download(job, hist, self.meta)
+        return job
+
+    def pack(self, job: _Batch) -> _Batch:
+        """Dynamic tables: the batch's K.2 builds and LUTs on the host,
+        then F, C and D enqueued and the totals' copy."""
+        enc = self.enc
+        job.tables, luts = enc._build_tables_batch(self._wait(job.hist),
+                                                   smooth=enc._sampled)
+        with self._on_compute():
+            luts = self._upload(job, torch.from_numpy(luts))
+            job.words, job.totals = enc._pack_only(job.pf, luts)
+        job.pf = None
+        self._mark(job)
+        job.totals_host = self._download(job, job.totals, self.meta)
+        return job
+
+    def finish(self, job: _Batch) -> list[bytes]:
+        """Wait for the batch's totals, fetch its used word prefix, and
+        assemble its files."""
+        enc = self.enc
+        totals_np = self._wait(job.totals_host).copy()
+        cap = _used_words(totals_np, job.words.shape[-1])
+        prefix = job.words[..., :cap].view(torch.int32)
+        words_np = self._wait(self._download(job, prefix, self.fetch))
+        files = enc._assemble(words_np.view(np.uint32), totals_np,
+                              job.tables)
+        if self.cuda:
+            self.pool.give_back(job)
+        return files

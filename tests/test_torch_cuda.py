@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from jpeg_tpu_torch import (EncodeConfig, FastBatchEncoder, JpegEncoder,
-                            encode_gray)
+from jpeg_tpu_torch import (BucketedEncoder, EncodeConfig, FastBatchEncoder,
+                            JpegEncoder, encode_gray, encode_progressive,
+                            encode_progressive_script)
 from jpeg_tpu_torch.golden import encoder as golden
 from jpeg_tpu_torch.kernels import (fused, front, launch_counts,
                                     reset_launch_counts)
@@ -658,3 +659,47 @@ def test_fields_kernels_edges_equal_twins(dev, case):
         want = place_plain_streams(*fields[:2], *offs, sw)
         for a, b in zip(place_checked(*got[:2], *offs, sw), want):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["fixed", "dynamic", "dynamic-sampled"])
+def test_encode_stream_equals_encode_batch(dev, mode):
+    """encode_stream on the card (streams, pinned buffers) gives
+    encode_batch's files in order, at depths 1, 2 and 4, with a partial
+    tail and a heavy random batch."""
+    rng = np.random.default_rng(97)
+    batches = [synthetic_batch(rng, 3, 64, 96) for _ in range(4)]
+    batches.append(rng.integers(0, 256, (2, 64, 96, 3), np.uint8))
+    enc = FastBatchEncoder(64, 96, EncodeConfig(
+        scan_layout="interleaved", huffman=mode,
+        restart_interval_mcu_rows=2), device=dev)
+    want = [enc.encode_batch(b) for b in batches]
+    for depth in (1, 2, 4):
+        reset_launch_counts()
+        assert list(enc.encode_stream(iter(batches), depth)) == want
+        assert launch_counts()["place"] == len(batches)
+    cpu = FastBatchEncoder(64, 96, enc.config, device="cpu")
+    assert want[0][:2] == cpu.encode_batch(batches[0][:2])
+
+
+def test_bucketed_encode_any_equals_cpu(dev):
+    rng = np.random.default_rng(98)
+    imgs = [synthetic_batch(rng, 1, h, w)[0]
+            for h, w in ((64, 64), (37, 50), (64, 64), (100, 90))]
+    got = BucketedEncoder(device=dev).encode_any(imgs)
+    assert got == BucketedEncoder(device="cpu").encode_any(imgs)
+
+
+@pytest.mark.parametrize("engine", ["spectral", "script"])
+@pytest.mark.parametrize("mode", ["fixed", "dynamic"])
+def test_progressive_equals_cpu(dev, engine, mode):
+    img = synthetic_batch(np.random.default_rng(99), 1, 64, 96)[0]
+    fn = encode_progressive if engine == "spectral" else \
+        encode_progressive_script
+    cfg = EncodeConfig(huffman=mode)
+    reset_launch_counts()
+    got = fn(img, cfg, device=dev)
+    counts = launch_counts()
+    kernels = (("front_dct", "attach_pf", "segment_offsets", "place")
+               if engine == "spectral" else ("front_dct",))
+    assert all(counts[k] > 0 for k in kernels)
+    assert got == fn(img, cfg, device="cpu")

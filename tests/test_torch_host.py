@@ -496,3 +496,87 @@ def test_speculative_parsers_match():
              (name, "structure"))
         found["dri-less"] += got is not None and not got["restart_interval"]
     assert found == {"scans": 2, "dri-less": 2}
+
+
+def _refine_band():
+    """``tests/test_progressive.py``'s refinement band: empty blocks, long
+    zero runs, corrections and newly significant coefficients."""
+    rng = np.random.default_rng(3)
+    zz = rng.integers(-9, 10, size=(120, 64)).astype(np.int64)
+    zz[rng.random((120, 64)) < 0.85] = 0
+    zz[::7] = 0                      # whole-block EOB runs
+    zz[5, 1:] = 0
+    zz[5, 63] = 3                    # long run to a correction
+    zz[9, 1:] = 0
+    zz[9, 62] = 1                    # long run to a new one (ZRLs)
+    return zz
+
+
+@pytest.mark.parametrize("allow_eobn", [True, False], ids=["eobn", "eob1"])
+@pytest.mark.parametrize("ss,se,ah,al", [(1, 63, 1, 0), (1, 63, 2, 1),
+                                         (6, 63, 1, 0)])
+def test_ac_refine_fields_match(ss, se, ah, al, allow_eobn):
+    """The port's native refinement coder equals jpeg_tpu's and the port's
+    plain loop (jpeg_tpu's Python fallback), element for element."""
+    from jpeg_tpu.pipelines import progressive as jprog
+    from jpeg_tpu_torch.pipelines import progressive as prog
+    zz = _refine_band()
+    band = zz[:, ss:se + 1]
+    max_run = 0x7FFF if allow_eobn else 1
+    got = native.ac_refine_fields(band, al, max_run, 1000)
+    want = jnative.ac_refine_fields(band, al, max_run, 1000)
+    assert want is not None, "jpeg_tpu's native library is unavailable"
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    plain = prog.ac_refine_fields_plain(zz, ss, se, ah, al, allow_eobn)
+    engine = prog._ac_refine_fields(zz, ss, se, ah, al, allow_eobn)
+    ref = jprog._ac_refine_fields(zz, ss, se, ah, al, allow_eobn)
+    for g, p, w in zip(engine.arrays(), plain.arrays(), ref.arrays()):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(p, w)
+
+
+@pytest.mark.parametrize("kind", ["fixed", "built"])
+def test_progressive_jfif_writers_match(kind):
+    if kind == "fixed":
+        tables, jtables = build.fixed_tables(), jbuild.fixed_tables()
+    else:
+        names = ("luma_dc", "luma_ac", "chroma_dc", "chroma_ac")
+        hists = np.stack(_histograms()[:4])
+        tables = dict(zip(names, build.build_tables_batch(hists)))
+        jtables = dict(zip(names, jbuild.build_tables_batch(hists)))
+    lq, cq = T.quant_tables(90)
+    for ys in ((2, 2), (2, 1), (1, 1)):
+        for dht in (True, False):
+            assert (jfif.headers(48, 32, lq, cq, tables, y_sampling=ys,
+                                 progressive=True, include_dht=dht)
+                    == jjfif.headers(48, 32, lq, cq, jtables,
+                                     y_sampling=ys, progressive=True,
+                                     include_dht=dht))
+        assert jfif.sof2_segment(1920, 1080, ys) == \
+            jjfif.sof2_segment(1920, 1080, ys)
+    for ah, al in ((0, 0), (0, 1), (2, 1), (1, 0)):
+        assert jfif.sos_header_progressive_dc(ah, al) == \
+            jjfif.sos_header_progressive_dc(ah, al)
+        for cid, tab, ss, se in ((1, 0, 1, 5), (2, 1, 6, 63), (3, 1, 1, 63)):
+            assert jfif.sos_header_progressive_ac(cid, tab, ss, se, ah, al) \
+                == jjfif.sos_header_progressive_ac(cid, tab, ss, se, ah, al)
+    header = jfif.headers(48, 32, lq, cq, tables, progressive=True)
+    scans = [(1, 0, 1, 63, b"\x01\xff\x00"), (2, 1, 1, 63, b""),
+             (3, 1, 1, 63, b"\x7f")]
+    assert jfif.assemble_progressive(header, b"\x12", scans) == \
+        jjfif.assemble_progressive(header, b"\x12", scans)
+
+
+@pytest.mark.parametrize("n,max_words", [(0, None), (1, None), (777, None),
+                                         (2000, 3000)])
+def test_pack_fields_np_matches(n, max_words):
+    from jpeg_tpu_torch.ops import pack as pack_ops
+    rng = np.random.default_rng(n)
+    nbits = rng.integers(0, 31, n)
+    nbits[rng.random(n) < 0.3] = 0
+    values = rng.integers(0, 1 << 30, n) & ((1 << nbits) - 1)
+    got = pack_ops.pack_fields_np(values, nbits, max_words)
+    want = jpack_ops.pack_fields_np(values, nbits, max_words)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]

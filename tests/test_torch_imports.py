@@ -20,6 +20,8 @@ def _run(code: str, env=None) -> str:
 
 @pytest.mark.parametrize("module", ["jpeg_tpu_torch",
                                     "jpeg_tpu_torch.pipelines.fast",
+                                    "jpeg_tpu_torch.pipelines.bucket",
+                                    "jpeg_tpu_torch.pipelines.progressive",
                                     "jpeg_tpu_torch.pipelines.encode",
                                     "jpeg_tpu_torch.pipelines.decode",
                                     "jpeg_tpu_torch.pipelines.speculative",
