@@ -24,6 +24,18 @@
   the host (the port's native library), with a warning under
   ``entropy_engine="auto"``.  The reconstruction runs in torch on the
   same device.
+* ``ChangeMonitor`` and ``FrameComparator`` (``pipelines/monitor.py``,
+  ``pipelines/diff.py``): the frame-differencing monitor.  The subsample
+  and the change mask run as torch ops on the device, the region growing
+  on the host after one copy of the mask, and each changed region is a
+  ``JpegEncoder.encode_region``; ``process_frame`` returns a
+  ``FrameResult``.
+* Tooling: ``python -m jpeg_tpu_torch`` (the seven subcommands of
+  ``jpeg_tpu``'s CLI, with ``--device``), ``io`` (PPM, resize/pad),
+  ``utils.profiling`` (``StageTimer``, ``encode_metrics``),
+  ``utils.stage_dump``, ``utils.dir_compare`` and ``utils.resilience``
+  (``probe_device``, and ``ResilientEncoder``: the one, opt-in, host
+  fallback, which records every event).
 
 On a CUDA device every encode step from u8 pixels to packed words, and the
 Huffman decode of the card's routes, runs in the hand-written kernels
@@ -33,16 +45,20 @@ The entry points run on the card unless the caller passes
 
 The package imports neither ``jax`` nor anything of ``jpeg_tpu``: it keeps
 its own copies of the host code it needs (``core``, ``huffman``,
-``bitstream``, ``golden`` and the C++ runtime under ``native``).
+``bitstream``, ``golden``, ``io``, the host side of ``pipelines/diff.py``,
+``utils`` and the C++ runtime under ``native``).
 """
 from .core.types import Area, EncodeConfig  # noqa: F401
 from .pipelines.bucket import BucketedEncoder  # noqa: F401
 from .pipelines.decode import decode_jpeg, decode_jpeg_batch  # noqa: F401
 from .pipelines.encode import JpegEncoder, encode_gray, encode_jpeg  # noqa: F401
+from .pipelines.diff import FrameComparator  # noqa: F401
 from .pipelines.fast import FastBatchEncoder  # noqa: F401
+from .pipelines.monitor import ChangeMonitor, FrameResult  # noqa: F401
 from .pipelines.progressive import (encode_progressive,  # noqa: F401
                                     encode_progressive_script)
 
-__all__ = ["Area", "BucketedEncoder", "EncodeConfig", "FastBatchEncoder",
+__all__ = ["Area", "BucketedEncoder", "ChangeMonitor", "EncodeConfig",
+           "FastBatchEncoder", "FrameComparator", "FrameResult",
            "JpegEncoder", "decode_jpeg", "decode_jpeg_batch", "encode_gray",
            "encode_jpeg", "encode_progressive", "encode_progressive_script"]

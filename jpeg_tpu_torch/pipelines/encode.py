@@ -153,7 +153,8 @@ class JpegEncoder:
         if h % mcu_h or w % mcu_w:
             raise ValueError(
                 f"dimensions must be multiples of {mcu_w}x{mcu_h}, got "
-                f"{w}x{h}; pad with jpeg_tpu.io.editimage, or use encode_any")
+                f"{w}x{h}; pad with jpeg_tpu_torch.io.editimage, or use "
+                f"encode_any")
         if self.config.debug_checks:
             from ..utils.guards import validate_encode_inputs
             validate_encode_inputs(x, self._luma_q, self._chroma_q,

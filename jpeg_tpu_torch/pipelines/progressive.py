@@ -380,7 +380,8 @@ def _image(rgb, cfg: EncodeConfig, dev: torch.device) -> torch.Tensor:
         raise ValueError("image has zero pixels")
     if h % mcu_h or w % mcu_w:
         raise ValueError(f"dimensions must be multiples of {mcu_w}x{mcu_h}, "
-                         f"got {w}x{h}; pad with jpeg_tpu.io.editimage")
+                         f"got {w}x{h}; pad with "
+                         f"jpeg_tpu_torch.io.editimage")
     return x
 
 

@@ -6,14 +6,17 @@ suite's conftest imports jax, which the card machine lacks) each kernel
 must equal its plain twin exactly (in every layout and mode, the explicit
 modes of B and E too), and the encoders' bytes must equal the CPU path's,
 in every Huffman mode and chroma subsampling (f64 exact mode: the golden
-encoder's as well).  ``chip_smoke.py`` runs the same checks at full size.
-No jax here."""
+encoder's as well), and the monitor's areas, bytes and delays the CPU
+path's.  ``chip_smoke.py`` runs the same checks at full size.  The two
+tests of ``chip_smoke.device_us`` need no card and run anywhere.  No jax
+here."""
 import numpy as np
 import pytest
 import torch
 
-from jpeg_tpu_torch import (BucketedEncoder, EncodeConfig, FastBatchEncoder,
-                            JpegEncoder, encode_gray, encode_progressive,
+from jpeg_tpu_torch import (BucketedEncoder, ChangeMonitor, EncodeConfig,
+                            FastBatchEncoder, FrameComparator, JpegEncoder,
+                            encode_gray, encode_progressive,
                             encode_progressive_script)
 from jpeg_tpu_torch.golden import encoder as golden
 from jpeg_tpu_torch.kernels import (fused, front, launch_counts,
@@ -703,3 +706,78 @@ def test_progressive_equals_cpu(dev, engine, mode):
                if engine == "spectral" else ("front_dct",))
     assert all(counts[k] > 0 for k in kernels)
     assert got == fn(img, cfg, device="cpu")
+
+
+def _moving_frames(rng, n, h=256, w=160):
+    """A background, then a rectangle moving each frame and, from frame 3
+    on, a second one (frame 2 repeats frame 1)."""
+    bg = synthetic_batch(rng, 1, h, w)[0]
+    out = np.repeat(bg[None], n, axis=0)
+    for i in range(1, n):
+        t = i if i != 2 else 1
+        out[i, 20 + 8 * t:70 + 8 * t, 10 + 6 * t:60 + 6 * t] = (240, 20, 30)
+        if i >= 3:
+            out[i, 190:240, 100:150] = 255 - bg[190:240, 100:150]
+    return out
+
+
+@pytest.mark.parametrize("mode", ["dynamic", "fixed"])
+def test_monitor_equals_cpu(dev, mode):
+    """ChangeMonitor on the card: every frame's areas, bytes and delay are
+    the CPU path's, and the region encode launched its kernels."""
+    frames = _moving_frames(np.random.default_rng(101), 5)
+    cfg = EncodeConfig(huffman=mode)
+
+    def run(device):
+        mon = ChangeMonitor(256, 160, config=cfg, device=device)
+        return [[((a.x, a.y, a.w, a.h), data) for a, data in r.regions]
+                + [r.suggested_delay] for r in map(mon.process_frame, frames)]
+    reset_launch_counts()
+    got = run(dev)
+    counts = launch_counts()
+    path = (("symbolize_bits",) if mode == "fixed"
+            else ("symbolize_fields", "attach_pf"))
+    assert all(counts[k] > 0 for k in ("front_dct", "segment_offsets",
+                                       "place", *path))
+    assert got == run("cpu")
+    assert [len(r) - 1 for r in got] == [0, 1, 0, 2, 1]
+
+
+def test_pairwise_batch_equals_cpu(dev):
+    frames = _moving_frames(np.random.default_rng(102), 16)
+    got = FrameComparator(256, 160, device=dev)
+    sub = got.subsample(frames)
+    assert sub.is_cuda and sub.shape == (16, 64, 40, 3)
+    want = FrameComparator(256, 160, device="cpu")
+    assert torch.equal(sub.cpu(), want.subsample(frames))
+    pairs = got.compare_pairwise_batch(frames)
+    assert pairs == want.compare_pairwise_batch(frames)
+    assert pairs[1] == [] and pairs[0]
+
+
+def test_device_us_retries_then_raises(monkeypatch):
+    """chip_smoke.device_us never reads 0: a profile that saw no device
+    work is retried, and if none does, it raises.  Needs no card."""
+    import chip_smoke
+    calls = []
+
+    def empty(fn, runs):
+        calls.append(runs)
+        return {}, 1.0
+    monkeypatch.setattr(chip_smoke, "device_profile", empty)
+    with pytest.raises(AssertionError, match="none of 7 profiles"):
+        chip_smoke.device_us(lambda: None, 5)
+    assert calls == [5] * (3 + chip_smoke.DEVICE_US_EXTRA)
+
+
+def test_device_us_drops_short_profiles(monkeypatch):
+    """A profile that lost a device op the others saw, or all of them, is
+    dropped and replaced; the readings and the count of drops are kept."""
+    import chip_smoke
+    profiles = iter([{"A": 2.0, "copy": 1.0}, {"copy": 1.0}, {},
+                     {"A": 2.5, "copy": 1.0}, {"A": 2.0, "copy": 1.5}])
+    monkeypatch.setattr(chip_smoke, "device_profile",
+                        lambda fn, runs: (next(profiles), 0.5))
+    us = chip_smoke.device_us(lambda: None, 5)
+    assert us == (3.5, [3.0, 3.5, 3.5], ["A", "copy"], 2)
+    assert "3 profiles kept, 2 dropped" in chip_smoke.device_text(us)

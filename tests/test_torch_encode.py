@@ -231,12 +231,19 @@ def test_gray_blocks_match_analyze_gray():
 # -- errors -------------------------------------------------------------------
 
 
+def port_message(message: str) -> str:
+    """jpeg_tpu's message as the port words it: the port's errors name its
+    own copy of the padding tool."""
+    return message.replace("jpeg_tpu.io.editimage",
+                           "jpeg_tpu_torch.io.editimage")
+
+
 def _both_raise(exc, jax_call, port_call):
     with pytest.raises(exc) as want:
         jax_call()
     with pytest.raises(exc) as got:
         port_call()
-    assert str(got.value) == str(want.value)
+    assert str(got.value) == port_message(str(want.value))
 
 
 @pytest.mark.parametrize("shape", [(72, 64, 3), (64, 40, 3), (0, 64, 3),

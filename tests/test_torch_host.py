@@ -580,3 +580,129 @@ def test_pack_fields_np_matches(n, max_words):
     want = jpack_ops.pack_fields_np(values, nbits, max_words)
     np.testing.assert_array_equal(got[0], want[0])
     assert got[1] == want[1]
+
+
+# -- the tooling copies: io/, utils/, and the host side of pipelines/diff.py --
+
+
+@pytest.mark.parametrize("header", [b"P6\n%d %d\n255\n",
+                                    b"P6\n# a comment\n%d\n%d 255\n"])
+def test_ppm_copy_matches(tmp_path, header):
+    from jpeg_tpu.io import ppm as jppm
+    from jpeg_tpu_torch.io import ppm
+    img = synthetic_images(41, 1, 24, 40)[0]
+    data = header % (40, 24) + img.tobytes()
+    np.testing.assert_array_equal(ppm.parse_ppm(data), jppm.parse_ppm(data))
+    np.testing.assert_array_equal(ppm.parse_ppm(data), img)
+    ppm.write_ppm(str(tmp_path / "a.ppm"), img)
+    jppm.write_ppm(str(tmp_path / "b.ppm"), img)
+    assert (tmp_path / "a.ppm").read_bytes() == (tmp_path / "b.ppm").read_bytes()
+    np.testing.assert_array_equal(ppm.read_ppm(str(tmp_path / "b.ppm")), img)
+    for bad in (b"P5\n1 1\n255\n\x00", b"P6\n1 1\n65535\n\x00" * 2,
+                b"P6\n2 2\n255\n\x00", b"P6\n"):
+        with pytest.raises(ValueError) as w:
+            jppm.parse_ppm(bad)
+        with pytest.raises(ValueError) as g:
+            ppm.parse_ppm(bad)
+        assert str(g.value) == str(w.value)
+    with pytest.raises(ValueError) as w:
+        jppm.write_ppm(str(tmp_path / "c.ppm"), img[..., 0])
+    with pytest.raises(ValueError) as g:
+        ppm.write_ppm(str(tmp_path / "c.ppm"), img[..., 0])
+    assert str(g.value) == str(w.value)
+
+
+@pytest.mark.parametrize("h,w", [(20, 30), (16, 48), (33, 17)])
+def test_editimage_copy_matches(h, w):
+    from jpeg_tpu.io import editimage as jedit
+    from jpeg_tpu_torch.io import editimage as edit
+    img = np.random.default_rng(h * w).integers(0, 256, (h, w, 3),
+                                                 dtype=np.uint8)
+    for tw, th in ((40, 16), (w, h), (8, 64)):
+        np.testing.assert_array_equal(edit.resize_pad(img, tw, th),
+                                      jedit.resize_pad(img, tw, th))
+    for m in (8, 16):
+        np.testing.assert_array_equal(edit.pad_to_multiple(img, m),
+                                      jedit.pad_to_multiple(img, m))
+        np.testing.assert_array_equal(edit.pad_replicate(img, m),
+                                      jedit.pad_replicate(img, m))
+    assert edit.PAD_VALUE == jedit.PAD_VALUE
+
+
+def test_dir_compare_copy_matches(tmp_path, capsys):
+    from jpeg_tpu.utils import dir_compare as jdc
+    from jpeg_tpu_torch.utils import dir_compare as dc
+    a, b = tmp_path / "a", tmp_path / "b"
+    for d in (a, b):
+        d.mkdir()
+        (d / "same").write_bytes(b"\x00\x01")
+        (d / "sub").mkdir()
+    (a / "diff").write_bytes(b"x")
+    (b / "diff").write_bytes(b"y")
+    (a / "only_a").write_bytes(b"")
+    assert dc.compare_dirs(str(a), str(b)) == jdc.compare_dirs(str(a), str(b))
+    for argv in ([str(a), str(b)], [str(a), str(a)], [str(a)]):
+        capsys.readouterr()
+        rc = dc.main(argv)
+        got = capsys.readouterr().out
+        want_rc = jdc.main(argv)
+        want = capsys.readouterr().out
+        assert rc == want_rc
+        assert got == want.replace("jpeg_tpu.", "jpeg_tpu_torch.")
+
+
+@pytest.mark.parametrize("quality", [None, 60])
+def test_stage_dump_copy_matches(tmp_path, quality):
+    from jpeg_tpu.utils import stage_dump as jsd
+    from jpeg_tpu_torch.utils import stage_dump as sd
+    img = synthetic_images(43, 1, 32, 48)[0]
+    sd.dump_stages(img, str(tmp_path / "port"), quality=quality)
+    jsd.dump_stages(img, str(tmp_path / "jax"), quality=quality)
+    names = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert len(names) == 15
+    assert sorted(p.name for p in (tmp_path / "port").iterdir()) == names
+    for n in names:
+        assert (tmp_path / "port" / n).read_bytes() == \
+            (tmp_path / "jax" / n).read_bytes(), n
+    np.testing.assert_array_equal(sd.channel_montage(img),
+                                  jsd.channel_montage(img))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_diff_host_regions_copy_matches(seed):
+    """The host region stages of ``pipelines/diff.py`` on seeded masks:
+    ``find_regions``, ``enlarge_adjust``, ``merge_adjusted``,
+    ``filter_small`` and ``_align_area``."""
+    from jpeg_tpu.pipelines import diff as JD
+    from jpeg_tpu_torch.pipelines import diff as D
+    rng = np.random.default_rng(seed)
+    mask = rng.random((40, 40) if seed % 2 else (12, 8)) < (
+        0.002, 0.01, 0.05, 0.2)[seed]
+    got, want = D.find_regions(mask), JD.find_regions(mask)
+    assert [dataclasses.astuple(r) for r in got] == \
+        [dataclasses.astuple(r) for r in want]
+    fh, fw = mask.shape[0] * 4, mask.shape[1] * 4
+    ga = [D.enlarge_adjust(r, fw, fh) for r in got]
+    wa = [JD.enlarge_adjust(r, fw, fh) for r in want]
+    assert [repr(a) for a in ga] == [repr(a) for a in wa]
+    ga, wa = D.merge_adjusted(ga, fw, fh), JD.merge_adjusted(wa, fw, fh)
+    assert [repr(a) for a in ga] == [repr(a) for a in wa]
+    assert [repr(a) for a in D.filter_small(ga)] == \
+        [repr(a) for a in JD.filter_small(wa)]
+    for m in (16, 64):
+        for x, y, bw, bh in rng.integers(0, min(fh, fw), (8, 4)):
+            args = (int(x), int(y), int(bw) + 1, int(bh) + 1, fw, fh, m)
+            assert repr(D._align_area(*args)) == repr(JD._align_area(*args))
+    assert (D.MAX_REGIONS, D.DEFAULT_THRESHOLD) == (JD.MAX_REGIONS,
+                                                    JD.DEFAULT_THRESHOLD)
+
+
+def test_padding_errors_name_the_ports_own_tool():
+    from jpeg_tpu_torch import JpegEncoder, encode_progressive
+    img = np.zeros((24, 40, 3), np.uint8)
+    for call in (lambda: JpegEncoder(device="cpu").encode(img),
+                 lambda: encode_progressive(img, device="cpu")):
+        with pytest.raises(ValueError) as got:
+            call()
+        assert "jpeg_tpu_torch.io.editimage" in str(got.value)
+        assert "jpeg_tpu." not in str(got.value)

@@ -28,6 +28,15 @@ def _run(code: str, env=None) -> str:
                                     "jpeg_tpu_torch.kernels.huffdec",
                                     "jpeg_tpu_torch.golden.decoder",
                                     "jpeg_tpu_torch.utils.guards",
+                                    "jpeg_tpu_torch.pipelines.diff",
+                                    "jpeg_tpu_torch.pipelines.monitor",
+                                    "jpeg_tpu_torch.utils.profiling",
+                                    "jpeg_tpu_torch.utils.resilience",
+                                    "jpeg_tpu_torch.utils.stage_dump",
+                                    "jpeg_tpu_torch.utils.dir_compare",
+                                    "jpeg_tpu_torch.io.ppm",
+                                    "jpeg_tpu_torch.io.editimage",
+                                    "jpeg_tpu_torch.__main__",
                                     "jpeg_tpu_torch.convert",
                                     "chip_smoke"])
 def test_import_leaves_jax_and_jpeg_tpu_out(module):
@@ -35,6 +44,25 @@ def test_import_leaves_jax_and_jpeg_tpu_out(module):
                f"m.startswith(p + '.') for m in sys.modules) "
                f"for p in ('jax', 'jpeg_tpu')))")
     assert out.split() == ["False", "False"]
+
+
+def test_cli_leaves_jax_and_jpeg_tpu_out(tmp_path):
+    """``python -m jpeg_tpu_torch``: a subcommand run as a program imports
+    neither."""
+    src = str(tmp_path / "a.ppm")
+    with open(src, "wb") as f:
+        f.write(b"P6\n16 16\n255\n" + bytes(16 * 16 * 3))
+    out = _run("import runpy, sys\n"
+               f"sys.argv = ['jpeg_tpu_torch', '--device', 'cpu', 'encode', "
+               f"{src!r}, {str(tmp_path / 'a.jpg')!r}]\n"
+               "try:\n"
+               "    runpy.run_module('jpeg_tpu_torch', run_name='__main__')\n"
+               "except SystemExit as e:\n"
+               "    assert e.code == 0, e.code\n"
+               "print(*(any(m == p or m.startswith(p + '.') for m in "
+               "sys.modules) for p in ('jax', 'jpeg_tpu')))")
+    assert out.split()[-2:] == ["False", "False"]
+    assert (tmp_path / "a.jpg").read_bytes()[:2] == b"\xff\xd8"
 
 
 def _imports_of(line: str) -> list[str]:
