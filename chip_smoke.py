@@ -131,6 +131,31 @@ Phases, each of which raises (and so exits non-zero) on any failure:
       ``ResilientEncoder`` around a ``FastBatchEncoder`` on the card (no
       event, ``encode_batch``'s bytes) and around a stub that raises (the
       golden encoder's bytes, its events recorded).
+   j. the multi-device layer (``jpeg_tpu_torch.parallel``): NCCL through
+      ``initialize`` at world size 1 (the cards used: one), a 1x1 mesh;
+      ``ShardedEncoder.encode_batch`` of 4x1920x1280 4:2:0 with 4 segments
+      a slab (restarts every 20 MCU rows), fixed, dynamic,
+      "dynamic-sampled" and f64 dynamic, and of 4:2:2 2x1920x1080 and
+      4:4:4 4x1080x1080 dynamic with 5 (27 rows): every file equal to
+      ``FastBatchEncoder``'s on the card with the same restart interval
+      ("dynamic-sampled": the dynamic mode's, since jpeg_tpu's sharded
+      encoder counts every block), to the CPU plain path's and (f64) to
+      the golden encoder's; ``decode_jpeg_batch(mesh=...)`` of 3e's
+      restart files and 3f's streams without restarts,
+      ``speculative_decode(mesh=...)`` of 3f's single files and
+      ``speculative_decode_restart(mesh=...)`` of its restart pairs, each
+      equal to the call without a mesh; kernel G in both modes and H
+      launched share by share as 2, 4 and an odd count of ranks would
+      split their lanes (the last share padded with empty lanes), equal
+      to one launch.  Where the machine has 2 (4) cards, a 1x2 (2x2)
+      mesh of NCCL ranks (processes of this script, one a card): every
+      rank decodes 3e's and 3f's cases (and a 5-lane file) over it,
+      equal to the calls without it; the 4:2:0 cases run again on it (2
+      segments a slab): every rank's files must equal the 1x1 mesh's,
+      and their decode over the mesh the decode without one; each rank
+      then times the fixed and dynamic ``encode_batch`` with the global
+      batch on the host and on its card, with its device time, idle
+      share and ops by name.  With one card a line says so.
    The JPEG bytes must equal those of the same call on the CPU (the plain
    twins; a batch of 3a-3c compares its first 4 images, since each
    image's tables are its own), the first file of each run must decode
@@ -138,7 +163,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    ``golden.decoder`` at PSNR > 28 dB, the dynamic files' DHT segments
    must differ from the fixed tables', and the restart files must carry
    DRI and RSTn markers (3-scan: a DRI per scan);
-4. timings: the monitor's 1920x1280 stream of 3i (ms a frame and the
+4. timings: on a 1x1 mesh brought up without ``initialize`` (an
+   in-process store), ``ShardedEncoder.encode_batch`` of 3j's 4:2:0
+   fixed and dynamic batch beside ``FastBatchEncoder.encode_batch`` of
+   it with the same restart interval, in turns, each one's device time
+   and idle share, and the collectives' device µs; the monitor's
+   1920x1280 stream of 3i (ms a frame and the
    device idle share; on its five-region frame the upload, the device µs
    of subsample and mask, the mask's D2H, the host region pipeline and
    the regions' encode by kernel) and ``compare_pairwise_batch``'s ms a
@@ -186,9 +216,12 @@ and ``g++``.
 from __future__ import annotations
 
 import argparse
+import collections
 import functools
+import hashlib
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -197,6 +230,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from jpeg_tpu_torch import (Area, BucketedEncoder, ChangeMonitor,
                             EncodeConfig, FastBatchEncoder, JpegEncoder,
@@ -220,6 +254,10 @@ from jpeg_tpu_torch.io.ppm import read_ppm, write_ppm
 from jpeg_tpu_torch.pipelines import decode as pdec
 from jpeg_tpu_torch.pipelines import diff as pdiff
 from jpeg_tpu_torch.pipelines import speculative as pspec
+from jpeg_tpu_torch.parallel import distributed as pdist
+from jpeg_tpu_torch.parallel.launch import run_ranks
+from jpeg_tpu_torch.parallel.mesh import make_mesh
+from jpeg_tpu_torch.parallel.sharded import ShardedEncoder
 from jpeg_tpu_torch.pipelines.fast import analyze_zz
 from jpeg_tpu_torch.utils.resilience import ResilientEncoder, probe_device
 
@@ -417,6 +455,32 @@ RESILIENT_STUB = (2, 256, 256)
 # a region's decode against its window: jpeg_tpu's own monitor bound
 # (tests/test_diff.py::test_monitor_end_to_end); a window cuts hard edges
 REGION_MIN_PSNR_DB = 20.0
+
+# the multi-device layer (phase 3j): ShardedEncoder runs (label, sampling,
+# batch, height, width, segments a slab on a 1x1 mesh, Huffman mode,
+# dtype): restarts every 20 MCU rows at 4:2:0 (80 rows), 27 at 4:2:2 and
+# 4:4:4 (135 rows of 8 px); the cases of one geometry share one batch
+SHARDED_CASES = [
+    ("4:2:0 fixed", "420", 4, 1280, 1920, 4, "fixed", "float32"),
+    ("4:2:0 dynamic", "420", 4, 1280, 1920, 4, "dynamic", "float32"),
+    ("4:2:0 dynamic-sampled", "420", 4, 1280, 1920, 4, "dynamic-sampled",
+     "float32"),
+    ("4:2:0 f64 dynamic", "420", 4, 1280, 1920, 4, "dynamic", "float64"),
+    ("4:2:2 dynamic r27", "422", 2, 1080, 1920, 5, "dynamic", "float32"),
+    ("4:4:4 dynamic r27", "444", 4, 1080, 1080, 5, "dynamic", "float32"),
+]
+SHARDED_RNG_OFFSET = 16
+SHARDED_TIMED = ("4:2:0 fixed", "4:2:0 dynamic")
+# the split over NCCL ranks, one a card, where the machine has the cards:
+# (world, data, space); each run's time limit
+SPLITS = [(2, 1, 2), (4, 2, 2)]
+SPLIT_TIMEOUT_S = 300
+SPLIT_RUNS = 5
+# the lanes of a mesh decode split over ranks, emulated on one card: kernel
+# G on 3e's 4:2:2 r27 pair (10 lanes), G's speculative mode and H on 3f's
+# first DRI-less interleaved file, each over the shares of 2, 4 and the
+# first count of ranks its lanes do not divide by
+PADDED_DCASE = 3
 
 # the kernels timed at the shapes of the f64 batch
 F64_KERNELS = ("symbolize_bits_explicit", "symbolize_fields_explicit",
@@ -1500,10 +1564,432 @@ def monitor_timings(runs: dict, card: str, n: int) -> None:
               per_call.items(), key=lambda kv: -kv[1])[:6]))
 
 
-def device_profile(fn, runs: int) -> tuple[dict[str, float], float]:
+def sharded_batches(seed: int, upto: tuple | None = None) -> dict:
+    """Phase 3j's batches from ``seed``, one a geometry of SHARDED_CASES,
+    in their order (stopping after ``upto``): (batch, height, width) ->
+    [b, h, w, 3] u8.  Every rank of a split makes the same."""
+    rng = np.random.default_rng(seed + SHARDED_RNG_OFFSET)
+    out = {}
+    for _, _, b, h, w, *_ in SHARDED_CASES:
+        if (b, h, w) not in out:
+            out[(b, h, w)] = synthetic_batch(rng, b, h, w)
+        if (b, h, w) == upto:
+            break
+    return out
+
+
+def sharded_config(samp: str, mode: str, dtype: str,
+                   rows: int = 0) -> EncodeConfig:
+    return EncodeConfig(scan_layout="interleaved", huffman=mode,
+                        subsampling=samp, dtype=dtype,
+                        restart_interval_mcu_rows=rows)
+
+
+def sharded_path(mode: str, dtype: str) -> tuple[str, ...]:
+    """The kernels a ShardedEncoder slab launches."""
+    if dtype == "float64":
+        return F64_FIXED_PATH if mode == "fixed" else F64_DYNAMIC_PATH
+    return FIXED_PATH if mode == "fixed" else DYNAMIC_PATH
+
+
+def split_cases() -> list[tuple]:
+    """The SHARDED_CASES a ``space`` axis of 2 runs at the 1x1 mesh's
+    restart interval: (case, segments a slab).  135 MCU rows do not
+    halve."""
+    return [(c, c[5] // 2) for c in SHARDED_CASES if c[5] % 2 == 0]
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_phase(seed: int, dev, card: str, launches: dict, fixed_dht,
+                  dcases: list[dict], scases: list[dict]) -> dict:
+    """Phase 3j: NCCL through the port's ``initialize`` (world size 1 on
+    one card), a 1x1 mesh; each SHARDED_CASES run of
+    ``ShardedEncoder.encode_batch`` against ``FastBatchEncoder`` on the
+    card with the same restart interval ("dynamic-sampled": the dynamic
+    mode's files), the CPU plain path and (f64) the golden encoder; the
+    decode of 3e's and 3f's files over the mesh against the decode
+    without one; then the split over 2 and 4 cards where the machine has
+    them.  Returns the batches phase 4 times."""
+    t0 = time.perf_counter()
+    addr = f"localhost:{free_port()}"
+    pdist.initialize(coordinator_address=addr, num_processes=1,
+                     process_id=0)
+    pdist.initialize()  # already initialized: a no-op
+    mesh = make_mesh()
+    print(f"phase 3j: {dist.get_backend()} group of "
+          f"{dist.get_world_size()} rank through initialize (tcp://{addr}),"
+          f" a {tuple(mesh.shape)} (data, space) mesh on "
+          f"{mesh.device_type}")
+    batches = sharded_batches(seed)
+    digests = {}
+    for label, samp, b, h, w, spd, mode, dtype in SHARDED_CASES:
+        batch = batches[(b, h, w)]
+        enc = ShardedEncoder(mesh, h, w, sharded_config(samp, mode, dtype),
+                             segs_per_device=spd)
+        files = counted(f"ShardedEncoder.encode_batch {label} {b}x{h}x{w}",
+                        lambda: enc.encode_batch(batch),
+                        sharded_path(mode, dtype), launches)
+        rows = h // SAMPLING_GEOMETRY[samp][1] // spd
+        exact = "fixed" if mode == "fixed" else "dynamic"
+        ref = sharded_config(samp, exact, dtype, rows)
+        refs = [("FastBatchEncoder on the card", FastBatchEncoder(
+                    h, w, ref, device=dev).encode_batch(
+                    torch.from_numpy(batch).to(dev))),
+                ("the CPU plain path", FastBatchEncoder(
+                    h, w, ref, device="cpu").encode_batch(batch))]
+        if dtype == "float64":
+            refs.append(("the golden encoder", [bytes(golden_enc.encode(
+                img, scan_layout="interleaved", huffman=exact,
+                restart_interval_mcu_rows=rows)) for img in batch]))
+        for what, want in refs:
+            same = sum(f == g for f, g in zip(files, want))
+            if same != b or len(files) != b:
+                raise AssertionError(f"ShardedEncoder {label}: {same}/{b} "
+                                     f"files equal {what}'s")
+        summary = check_files(dict(label=label, original=batch[0],
+                                   restarts=(1, spd - 1)), files, fixed_dht)
+        digests[label] = [hashlib.sha256(f).hexdigest() for f in files]
+        print(f"  ShardedEncoder {label} {b}x{h}x{w}, {spd} segments a slab"
+              f" (restarts every {rows} MCU rows): {b}/{b} files "
+              f"byte-identical to " + ", ".join(what for what, _ in refs)
+              + f"; {summary}")
+    mesh_decode_checks(mesh, dev, launches, dcases, scases)
+    if dcases and scases:
+        padded_lane_checks(dev, dcases[PADDED_DCASE], next(
+            c for c in scases if "DRI-less" in c["label"]))
+    split_runs(seed, digests, card)
+    dist.destroy_process_group()
+    print(f"phase 3j (multi-device) took {time.perf_counter() - t0:.1f} s")
+    return batches
+
+
+def mesh_decode_checks(mesh, dev, launches: dict, dcases: list[dict],
+                       scases: list[dict]) -> None:
+    """Phase 3j's decode: 3e's restart files through ``decode_jpeg_batch``
+    over ``mesh``, 3f's streams without restarts through it (and
+    ``speculative_decode``), 3f's restart pairs through
+    ``speculative_decode_restart``; each must equal the call without a
+    mesh."""
+    for case in dcases:
+        files = case["files"]
+        got = counted(f"decode_jpeg_batch(mesh) of {case['label']}",
+                      lambda: decode_jpeg_batch(files, "device", device=dev,
+                                                mesh=mesh),
+                      ("decode_segments",), launches)
+        want = decode_jpeg_batch(files, "device", device=dev)
+        if not all(torch.equal(g, x) for g, x in zip(got, want)):
+            raise AssertionError(f"{case['label']}: decode over the mesh "
+                                 f"differs from the decode without one")
+    for case in scases:
+        files = case["files"]
+        calls = {"decode_jpeg_batch": lambda m: decode_jpeg_batch(
+            files, "device", device=dev, mesh=m)}
+        if case["call"] == "one":
+            calls["speculative_decode"] = lambda m: [pspec.speculative_decode(
+                files[0], device=dev, mesh=m)]
+        elif case["call"] == "restart":
+            calls = {"speculative_decode_restart": lambda m: [
+                pspec.speculative_decode_restart(f, device=dev, mesh=m)
+                for f in files]}
+        for name, call in calls.items():
+            got = counted(f"{name}(mesh) of {case['label']}",
+                          lambda: call(mesh),
+                          ("scan_positions", "decode_segments"), launches,
+                          g_row="decode_segments speculative")
+            want = call(None)
+            if any(g is None for g in got) or not all(
+                    torch.equal(g, x) for g, x in zip(got, want)):
+                raise AssertionError(f"{name} of {case['label']}: over the "
+                                     f"mesh it differs from the call without"
+                                     f" one")
+    print(f"  decode over the {'x'.join(map(str, mesh.shape))} mesh: "
+          f"{len(dcases)} restart cases of 3e and {len(scases)} cases of 3f"
+          f" equal the calls without a mesh")
+
+
+def padded_lane_checks(dev, dcase: dict, scase: dict) -> None:
+    """Kernel G in both modes and kernel H on the lane shares that a mesh
+    of several ranks gives them (``kernels.huffdec.lane_share``: equal
+    contiguous shares, the last padded with empty lanes), every share
+    launched on this card, against one launch over all the lanes: the
+    real lanes must be equal.  A 1x1 mesh pads no share, so this is where
+    the padding runs on one card.  These launches are not the main
+    path's."""
+    infos = [pdec._parse_device_eligible(f) for f in dcase["files"]]
+    *arrays, samp, nblk_seg, max_words = pdec._lane_inputs(infos)
+    s, mc, dl, hv, nb = (torch.from_numpy(a).to(dev) for a in arrays)
+    p = pspec._parse_spec(scase["files"][0])
+    lanes = pspec.scan_lanes(p["scan_list"], dev, None, p["sampling"])
+    fx = pspec.fixpoint(lanes)
+    if fx is None:
+        raise AssertionError(f"{scase['label']}: no fixpoint")
+    (ss, smc, sdl, shv, snb, ssamp, snblk, swords), kw = \
+        pspec.payload_inputs(lanes, *fx)
+    ep = pspec._put(dev, fx[0], fx[1])
+    cap = pspec.first_cap(lanes)
+    runs = {
+        f"G on {dcase['label']}": (
+            (s, hv), (mc, dl, nb), 0,
+            lambda M, m: khd.decode_segments(M[0], m[0], m[1], M[1], m[2],
+                                             samp, nblk_seg, max_words)),
+        f"G speculative on {scase['label']}": (
+            (ss, shv), (smc, sdl, snb, kw["entry"], kw["phase"]), 0,
+            lambda M, m: khd.decode_segments(
+                M[0], m[0], m[1], M[1], m[2], ssamp, snblk, swords,
+                entry=m[3], phase=m[4], phased=kw["phased"])),
+        f"H on {scase['label']}": (
+            (lanes.streams, lanes.tables[2]),
+            (lanes.tables[0], lanes.tables[1], ep[0:1], lanes.limits,
+             ep[1:2]), 1,
+            lambda M, m: torch.stack(khd.scan_positions(
+                M[0], m[0], m[1], M[1], m[2], m[3], cap, lanes.max_words,
+                sampling=lanes.sampling, phase=m[4])))}
+    parts = []
+    for label, (major, minor, dim, launch) in runs.items():
+        n = major[0].shape[0]
+        whole = launch(major, minor)
+        worlds = sorted({2, 4, next(w for w in range(3, n + 4) if n % w)})
+        for world in worlds:
+            got = torch.cat([launch(*khd.lane_share(r, world, n, major,
+                                                    minor))
+                             for r in range(world)], dim).narrow(dim, 0, n)
+            if not torch.equal(got, whole):
+                raise AssertionError(f"{label}: the shares of {world} ranks"
+                                     f" differ from one launch")
+        parts.append(f"{label}: {n} lanes, shares of " + ", ".join(
+            f"{w} ranks (pad {-n % w})" for w in worlds))
+    print("  lanes split as over a mesh, each share a launch on the card, "
+          "the last padded with empty lanes; the real lanes equal one "
+          "launch over them all: " + "; ".join(parts))
+
+
+def split_runs(seed: int, digests: dict, card: str) -> None:
+    """The split of phase 3j over NCCL ranks, one a card: each of SPLITS
+    the machine has the cards for; every rank's decode of 3e's and 3f's
+    cases over the mesh must equal the calls without one (the rank fails
+    otherwise), its files of ``split_cases`` the 1x1 mesh's
+    (``digests``), and the mesh decode of them the decode without one.
+    Prints the lanes of each decode case and each rank's
+    ``encode_batch`` ms of the SHARDED_TIMED cases."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase 3j: the split ran at world size 1 only: "
+              f"torch.cuda.device_count() is {n}, and a 1x2 split needs 2 "
+              f"cards (2x2: 4)")
+        return
+    for world, data, space in SPLITS:
+        if n < world:
+            print(f"phase 3j: no {data}x{space} split: it needs {world} "
+                  f"cards, this machine has {n}")
+            continue
+        t0 = time.perf_counter()
+        results = spawn_split(world, seed)
+        for r, res in enumerate(results):
+            for label, got in res["encode"].items():
+                if got["digests"] != digests[label]:
+                    raise AssertionError(f"{data}x{space} split, rank {r}: "
+                                         f"{label} files differ from the 1x1"
+                                         f" mesh's")
+                if not got["decode_equal"]:
+                    raise AssertionError(f"{data}x{space} split, rank {r}: "
+                                         f"{label} decode over the mesh "
+                                         f"differs")
+        encoded = results[0]["encode"]
+        print(f"phase 3j: {data}x{space} split over {world} NCCL ranks (one "
+              f"a card): every rank's files of {list(encoded)} equal the "
+              f"1x1 mesh's, and their decode over the mesh the decode "
+              f"without one; launches on rank 0: " + json.dumps(
+                  {k: v["launches"] for k, v in encoded.items()})
+              + f"; not split: "
+              f"{[c[0] for c in SHARDED_CASES if c[5] % 2]} (135 MCU rows "
+              f"do not halve); {time.perf_counter() - t0:.1f} s")
+        print(f"phase 3j: {data}x{space} split: on every rank the decode "
+              f"over the mesh of 3e's restart cases and 3f's cases equals "
+              f"the call without one; kernel G's lanes by case (over "
+              f"{space} ranks of space; the other 3f cases not counted): "
+              + "; ".join(f"{k}: {v}" + (f" (pad {-v % space})"
+                                        if v % space else "")
+                          for k, v in results[0]["decode"].items()
+                          if v is not None))
+        for label in SHARDED_TIMED:
+            t = [res["encode"][label]["timing"] for res in results]
+            print(f"timing ShardedEncoder.encode_batch {label} (mesh "
+                  f"{data}x{space}, {world} cards) on [{card}]: ms a batch "
+                  f"by rank, the global batch on the host: "
+                  + ", ".join(f"{x['host_ms']:.4f}" for x in t)
+                  + "; on each rank's card: "
+                  + ", ".join(f"{x['card_ms']:.4f}" for x in t)
+                  + f" (medians of {SPLIT_RUNS} after 3 warm calls); "
+                  f"device µs per call (card batch, torch.profiler) by "
+                  f"rank " + ", ".join(f"{x['device_us']:.2f}" for x in t)
+                  + ", idle share " + ", ".join(f"{x['idle']:.4f}"
+                                                for x in t)
+                  + "; rank 0 by name: " + ", ".join(
+                      f"{k} {v:.2f}" for k, v in t[0]["by_name"])
+                  + "; annotation spans (not counted): " + ", ".join(
+                      f"{k} {v:.2f}" for k, v in t[0]["spans"].items()))
+
+
+def spawn_split(world: int, seed: int) -> list[dict]:
+    """Run ``split_worker`` in ``world`` processes of this script -> each
+    rank's result.  All are killed, and the run fails with their stderr,
+    if one fails or they do not all end within SPLIT_TIMEOUT_S."""
+    addr = f"localhost:{free_port()}"
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+        run_ranks([[sys.executable, os.path.abspath(__file__), "--seed",
+                    str(seed), "--rank", str(r), "--world", str(world),
+                    "--coordinator", addr, "--out", outs[r]]
+                   for r in range(world)], tmp, SPLIT_TIMEOUT_S)
+        results = []
+        for out in outs:
+            with open(out) as f:
+                results.append(json.load(f))
+    return results
+
+
+def split_worker(args) -> int:
+    """One rank of ``spawn_split``: NCCL through ``initialize``, a
+    (world / 2) x 2 mesh; 3e's restart cases (and the first file of its
+    4:2:2 pair: 5 lanes, which do not halve) and 3f's cases decoded over
+    it against the calls without it (``mesh_decode_checks``, which raises
+    on a difference); ``split_cases`` encoded over it, and their decode
+    over the mesh against the decode without one; the result goes to
+    ``args.out`` as JSON."""
+    pdist.initialize(coordinator_address=args.coordinator,
+                     num_processes=args.world, process_id=args.rank)
+    pdist.initialize()
+    mesh = make_mesh(data=args.world // 2, space=2)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dcases = decode_cases(np.random.default_rng(args.seed + 5), dev)
+    scases = spec_cases(np.random.default_rng(args.seed + SPEC_RNG_OFFSET),
+                        dev, dcases)
+    two = dcases[PADDED_DCASE]
+    dcases.append(dict(two, label="the first file of " + two["label"],
+                       files=two["files"][:1],
+                       originals=two["originals"][:1]))
+    mesh_decode_checks(mesh, dev, collections.defaultdict(int), dcases,
+                       scases)
+    decode = {c["label"]: lane_count(c, dev) for c in dcases + scases}
+    geometry = SHARDED_CASES[0][2:5]
+    batch = sharded_batches(args.seed, upto=geometry)[geometry]
+    out = {"decode": decode, "encode": {}}
+    for (label, samp, b, h, w, _, mode, dtype), spd in split_cases():
+        enc = ShardedEncoder(mesh, h, w, sharded_config(samp, mode, dtype),
+                             segs_per_device=spd)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        files = enc.encode_batch(batch)
+        counts = launch_counts()
+        missing = [k for k in sharded_path(mode, dtype) if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"{label}: {missing} not launched")
+        plain = decode_jpeg_batch(files, "device", device=dev)
+        meshed = decode_jpeg_batch(files, "device", device=dev, mesh=mesh)
+        out["encode"][label] = dict(
+            timing=(split_timing(enc, batch, dev)
+                    if label in SHARDED_TIMED else None),
+            digests=[hashlib.sha256(f).hexdigest() for f in files],
+            decode_equal=all(torch.equal(a, c) for a, c in zip(plain,
+                                                              meshed)),
+            launches={k: v for k, v in counts.items() if v})
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(args.out, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def lane_count(case: dict, dev) -> int | None:
+    """The lanes kernel G decodes in a case of 3e (its restart segments)
+    or in a one-file case of 3f (its speculative lanes); None for the
+    other cases of 3f."""
+    if "one" in case:
+        files = case["files"][:1] if case["one"] else case["files"]
+        return sum(len(pdec._parse_device_eligible(f)["segs"])
+                   for f in files)
+    if case["call"] != "one":
+        return None
+    p = pspec._parse_spec(case["files"][0])
+    return len(pspec.scan_lanes(p["scan_list"], dev, None,
+                                p["sampling"]).starts)
+
+
+def split_timing(enc: ShardedEncoder, batch: np.ndarray, dev) -> dict:
+    """One split rank's ``encode_batch`` ms with the global batch on the
+    host and on its card, and its device µs per call, idle share and ops
+    by name with the batch on the card.  Every rank makes the same calls
+    (each ``encode_batch`` runs collectives)."""
+    xd = torch.from_numpy(batch).to(dev)
+    spans = {}
+    per_call, idle = device_profile(lambda: enc.encode_batch(xd),
+                                    SPLIT_RUNS, spans)
+    return dict(host_ms=host_ms(lambda: enc.encode_batch(batch), SPLIT_RUNS),
+                card_ms=host_ms(lambda: enc.encode_batch(xd), SPLIT_RUNS),
+                device_us=sum(per_call.values()), idle=idle, spans=spans,
+                by_name=sorted(per_call.items(),
+                               key=lambda kv: -kv[1])[:8])
+
+
+def sharded_timings(batches: dict, dev, card: str, runs: int) -> None:
+    """Phase 4 for 3j: on a 1x1 mesh brought up without ``initialize`` (a
+    world-size-1 NCCL group on an in-process store), each SHARDED_TIMED
+    case's ``encode_batch`` ms beside ``FastBatchEncoder``'s on the same
+    batch with the same restart interval (in turns), each one's device
+    time and idle share, and the collectives' device µs."""
+    mesh = make_mesh()
+    for label, samp, b, h, w, spd, mode, dtype in SHARDED_CASES:
+        if label not in SHARDED_TIMED:
+            continue
+        x = torch.from_numpy(batches[(b, h, w)]).to(dev)
+        rows = h // SAMPLING_GEOMETRY[samp][1] // spd
+        sharded = ShardedEncoder(mesh, h, w,
+                                 sharded_config(samp, mode, dtype),
+                                 segs_per_device=spd)
+        fast = FastBatchEncoder(h, w, sharded_config(samp, mode, dtype, rows),
+                                device=dev)
+        f0, s0, s1, f1 = (host_ms(lambda e=e: e.encode_batch(x), runs)
+                          for e in (fast, sharded, sharded, fast))
+        spans = {}
+        sper, sidle = device_profile(lambda: sharded.encode_batch(x), runs,
+                                     spans)
+        fper, fidle = device_profile(lambda: fast.encode_batch(x), runs)
+        coll = {k: v for k, v in sper.items()
+                if "nccl" in k.lower() or "DtoD" in k}
+        print(f"timing ShardedEncoder.encode_batch {label} {b}x{h}x{w} "
+              f"(mesh 1x1, {spd} segments, r{rows}) on [{card}]: "
+              f"{(s0 + s1) / 2:.4f} ms ({s0:.4f}, {s1:.4f}) beside "
+              f"FastBatchEncoder.encode_batch {(f0 + f1) / 2:.4f} ms "
+              f"({f0:.4f}, {f1:.4f}) on the same batch; median of {runs}, "
+              f"in turns")
+        print(f"  device µs per call (torch.profiler, {runs} calls): sharded"
+              f" {sum(sper.values()):.2f}, idle share {sidle:.4f}; "
+              f"FastBatchEncoder {sum(fper.values()):.2f}, idle share "
+              f"{fidle:.4f}; collectives' kernels and device copies: "
+              + (", ".join(f"{k} {v:.2f}" for k, v in coll.items())
+                 or "none seen") + "; annotation spans on the device "
+              "(enclosing the collectives' ops and waits, not counted): "
+              + (", ".join(f"{k} {v:.2f}" for k, v in spans.items())
+                 or "none") + "; sharded by name: " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in sorted(
+                      sper.items(), key=lambda kv: -kv[1])[:10]))
+    dist.destroy_process_group()
+
+
+def device_profile(fn, runs: int, spans: dict | None = None
+                   ) -> tuple[dict[str, float], float]:
     """torch.profiler over ``runs`` warm calls of ``fn``: (device µs per
     call by kernel or copy name, the device's idle share of the wall
-    time).  Empty names mean the profiler saw no device activity."""
+    time).  Empty names mean the profiler saw no device activity.  A user
+    annotation's range on the device (such as c10d's "nccl:all_gather",
+    which encloses a collective's device ops and the waits between them)
+    is no device work of its own: it counts nowhere, or in ``spans``
+    (µs per call by name) when given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -1527,6 +2013,10 @@ def device_profile(fn, runs: int) -> tuple[dict[str, float], float]:
         # -> "place_kernel"
         name = ev.key.replace("(anonymous namespace)::", "")
         name = name.split("(")[0].strip() or ev.key
+        if getattr(ev, "is_user_annotation", False):
+            if spans is not None:
+                spans[name] = spans.get(name, 0.0) + us / runs
+            continue
         per_call[name] = per_call.get(name, 0.0) + us / runs
     busy = sum(per_call.values()) * runs
     return per_call, 1.0 - busy / wall_us
@@ -2711,19 +3201,28 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--runs", type=int, default=20)
+    # one rank of phase 3j's split (spawn_split starts them)
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--coordinator", help=argparse.SUPPRESS)
+    ap.add_argument("--out", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if args.rank is not None:
+        return split_worker(args)
     rng = np.random.default_rng(args.seed)
     dev = torch.device("cuda", 0)
 
     # -- phase 1: the card and the builds ----------------------------------
-    card = subprocess.run(
+    cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
-    print(card)
+    print(cards)
+    # the timing lines name the first card (one line per card above)
+    card = cards.splitlines()[0]
     print(f"torch {torch.__version__}  CUDA {torch.version.cuda}  "
           f"device {torch.cuda.get_device_name(0)}")
     set_exact_matmul()
@@ -3201,7 +3700,15 @@ def main() -> int:
     print(f"phase 3i (monitor, CLI, resilience) took "
           f"{time.perf_counter() - t_mon:.1f} s")
 
+    # -- phase 3j: the multi-device layer, each run its own path ------------
+    sharded_runs = sharded_phase(args.seed, dev, card, launches, fixed_dht,
+                                 dcases, scases)
+
     # -- phase 4: timings ----------------------------------------------------
+    t_sharded = time.perf_counter()
+    sharded_timings(sharded_runs, dev, card, max(3, args.runs // 4))
+    print(f"the multi-device timings took "
+          f"{time.perf_counter() - t_sharded:.1f} s")
     t_mon = time.perf_counter()
     monitor_timings(monitor_runs, card, max(3, args.runs // 4))
     print(f"the monitor's timings took {time.perf_counter() - t_mon:.1f} s")

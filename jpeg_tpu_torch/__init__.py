@@ -30,6 +30,13 @@
   on the host after one copy of the mask, and each changed region is a
   ``JpegEncoder.encode_region``; ``process_frame`` returns a
   ``FrameResult``.
+* ``parallel``: the multi-device layer on ``torch.distributed`` (one
+  process a device; NCCL on the card, gloo on the CPU): ``mesh.make_mesh``
+  and ``distributed.initialize``/``global_mesh``/``process_batch_slice``,
+  and ``sharded.ShardedEncoder``, restart-slab sharding over a (data,
+  space) mesh whose files equal one device's.  ``decode_jpeg_batch`` and
+  the speculative decodes take ``mesh=`` and share the lanes of kernels
+  G and H over its ranks.
 * Tooling: ``python -m jpeg_tpu_torch`` (the seven subcommands of
   ``jpeg_tpu``'s CLI, with ``--device``), ``io`` (PPM, resize/pad),
   ``utils.profiling`` (``StageTimer``, ``encode_metrics``),

@@ -629,3 +629,97 @@ def scan_positions(streams: torch.Tensor, maxc: torch.Tensor,
            max_words, _scan_steps(cap_blocks), len(pattern),
            sum(c == 0 for _, _, c in pattern))
     return outs[0], outs[1], outs[2]
+
+
+# -- G and H over a mesh ------------------------------------------------------
+
+
+def _share(t, dim: int, lo: int, share: int):
+    """Lanes ``lo .. lo+share-1`` of ``t`` along ``dim`` (None stays None),
+    past the last lane zero-padded: a padding lane has no blocks
+    (``nblk_lane`` 0) and no span (``limit`` 0), so it decodes and walks
+    nothing."""
+    if t is None:
+        return None
+    lo = min(lo, t.shape[dim])
+    part = t.narrow(dim, lo, min(share, t.shape[dim] - lo))
+    pad = share - part.shape[dim]
+    if pad:
+        shape = list(t.shape)
+        shape[dim] = pad
+        part = torch.cat([part, t.new_zeros(shape)], dim)
+    return part.contiguous()
+
+
+def lane_share(rank: int, world: int, Sp: int, lane_major, lane_minor):
+    """Rank ``rank``'s contiguous share of ``Sp`` lanes split over
+    ``world`` ranks -> (its shares of the [Sp, ...] tensors of
+    ``lane_major``, its shares of the [.., Sp] tensors of
+    ``lane_minor``); every share holds ceil(Sp / world) lanes."""
+    share = -(-Sp // world)
+    lo = rank * share
+    return ([_share(t, 0, lo, share) for t in lane_major],
+            [_share(t, 1, lo, share) for t in lane_minor])
+
+
+def _group(mesh, axis: str):
+    """``mesh``'s ``axis`` group -> (group, rank in it, its size)."""
+    import torch.distributed as dist
+    group = mesh.get_group(axis)
+    return group, dist.get_rank(group), dist.get_world_size(group)
+
+
+def decode_segments_sharded(mesh, streams, maxc, delt, hvp, nblk_lane,
+                            sampling: str, nblk_seg: int, max_words: int,
+                            axis: str = "space", entry=None, phase=None,
+                            phased: bool = False) -> torch.Tensor:
+    """``decode_segments`` spread over the ranks of ``mesh``'s ``axis``
+    (``mesh`` None: one launch over every lane).
+
+    Lanes (restart segments or speculative chunks) are independent, so
+    every rank decodes a contiguous, equal share of them in kernel G (its
+    plain twin on the CPU), the last share padded with lanes that decode
+    nothing, and the shares are gathered within the group: every rank
+    returns the whole zz [Sp, nblk_seg, 64].  Every rank of the group
+    passes the same inputs, on its own device.  ``jpeg_tpu`` pads each
+    device's lanes to whole 128-lane groups for its VPU; here a share is
+    exactly its lanes.
+    """
+    if mesh is None:
+        return decode_segments(streams, maxc, delt, hvp, nblk_lane,
+                               sampling, nblk_seg, max_words, entry=entry,
+                               phase=phase, phased=phased)
+    from ..parallel.mesh import all_gather_cat
+    Sp = streams.shape[0]
+    group, rank, world = _group(mesh, axis)
+    (s, hv), (mc, dl, nb, e, ph) = lane_share(
+        rank, world, Sp, (streams, hvp), (maxc, delt, nblk_lane, entry, phase))
+    zz = decode_segments(s, mc, dl, hv, nb, sampling, nblk_seg, max_words,
+                         entry=e, phase=ph, phased=phased)
+    return all_gather_cat(zz, group, 0)[:Sp]
+
+
+def scan_positions_sharded(mesh, streams, maxc, delt, hvp, entry, limit,
+                           cap_blocks: int, max_words: int,
+                           sampling: str = "gray", phase=None,
+                           axis: str = "space"):
+    """``scan_positions`` spread over the ranks of ``mesh``'s ``axis``, as
+    ``decode_segments_sharded`` spreads G (``mesh`` None: one launch):
+    each rank walks its share of the lanes in kernel H, and every rank
+    returns the whole (exits, counts, bad), each [Sp] int32.  The
+    speculative fixpoint's chains stay on the host, so a round is one
+    collective-free launch and one gather.
+    """
+    if mesh is None:
+        return scan_positions(streams, maxc, delt, hvp, entry, limit,
+                              cap_blocks, max_words, sampling=sampling,
+                              phase=phase)
+    from ..parallel.mesh import all_gather_cat
+    Sp = streams.shape[0]
+    group, rank, world = _group(mesh, axis)
+    (s, hv), (mc, dl, e, li, ph) = lane_share(
+        rank, world, Sp, (streams, hvp), (maxc, delt, entry, limit, phase))
+    out = torch.stack(scan_positions(s, mc, dl, hv, e, li, cap_blocks,
+                                     max_words, sampling=sampling, phase=ph))
+    out = all_gather_cat(out, group, 1)[:, :Sp]
+    return out[0], out[1], out[2]

@@ -283,13 +283,23 @@ def _lane_inputs(infos: list[dict]):
             max(inf["ri"] * inf["period"] for inf in infos), max_words)
 
 
-def _decode_lanes(infos: list[dict], device) -> torch.Tensor:
+def check_mesh(mesh, dev: torch.device) -> None:
+    """A decode over ``mesh`` runs on the mesh's device type."""
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot decode on "
+                         f"{dev}")
+
+
+def _decode_lanes(infos: list[dict], device, mesh=None,
+                  mesh_axis: str = "space") -> torch.Tensor:
     """One kernel G launch over the segments of every stream in ``infos``
-    -> zz [S, nblk_seg, 64] on ``device``."""
+    -> zz [S, nblk_seg, 64] on ``device``; with a ``mesh``, one launch a
+    rank over its share of the segments, gathered within ``mesh_axis``
+    (``kernels.huffdec.decode_segments_sharded``)."""
     *arrays, samp, nblk_seg, max_words = _lane_inputs(infos)
-    return hd.decode_segments(
-        *(torch.from_numpy(a).to(device) for a in arrays), samp, nblk_seg,
-        max_words)
+    lanes = [torch.from_numpy(a).to(device) for a in arrays]
+    return hd.decode_segments_sharded(mesh, *lanes, samp, nblk_seg,
+                                      max_words, axis=mesh_axis)
 
 
 def _planes_of(zz: torch.Tensor, info: dict):
@@ -421,15 +431,18 @@ def decode_jpeg_batch(datas, entropy_engine: str = "auto",
     takes decodes on the host (under "auto": with a warning naming the
     stream; under "device": ``ValueError``).  Returns a list of
     [H, W, 3] (or [H, W] gray) uint8 tensors on ``device`` in input
-    order.  ``mesh`` (sharding the lanes over devices) is not ported yet
-    and raises ``NotImplementedError``.
+    order.
+
+    ``mesh``: a ``parallel.mesh.make_mesh`` mesh whose ``mesh_axis`` ranks
+    share the lanes of every launch of kernels G and H (independent
+    segments or chunks; each rank decodes a contiguous share and the
+    shares are gathered).  Every rank of that group calls this with the
+    same streams and returns every image, equal to the decode without a
+    mesh.  ``device`` must be of the mesh's device type.
     """
     check_entropy_engine(entropy_engine)
-    if mesh is not None:
-        raise NotImplementedError(
-            "decode_jpeg_batch(mesh=...): multi-device decode is not ported "
-            "yet (ROADMAP queue 1 item 12)")
     dev = _device(device)
+    check_mesh(mesh, dev)
     datas = list(datas)
     results: list = [None] * len(datas)
     groups: dict = {}
@@ -445,7 +458,8 @@ def decode_jpeg_batch(datas, entropy_engine: str = "auto",
         if entropy_engine != "host":  # non-restart streams: speculative
             from .speculative import speculative_decode_batch
             outs = speculative_decode_batch([datas[i] for i in spec_idx],
-                                            device=dev)
+                                            device=dev, mesh=mesh,
+                                            mesh_axis=mesh_axis)
         else:
             outs = [None] * len(spec_idx)
         for i, out in zip(spec_idx, outs):
@@ -465,7 +479,7 @@ def decode_jpeg_batch(datas, entropy_engine: str = "auto",
         # jpeg_tpu first reroutes a group of under 320 segments
         # (_SPEC_RST_MAX_SEGS, its VPU-lane occupancy) through its
         # speculative path on a TPU; the port decodes every group here
-        zz = _decode_lanes([inf for _, inf in items], dev)
+        zz = _decode_lanes([inf for _, inf in items], dev, mesh, mesh_axis)
         planes = []
         off = 0
         for i, inf in items:

@@ -227,16 +227,36 @@ class FastBatchEncoder:
 
     def _step(self, x: torch.Tensor):
         """``step`` of a checked [B, H, W*3] batch on ``self.device``."""
-        B, S = x.shape[0], self.n_segs
+        return self._fixed_pack(self._analysis(x), x.shape[0])
+
+    def _analysis(self, x: torch.Tensor):
+        """A checked [B, H, W*3] batch -> its coefficients: kernel A's
+        [B*S, nblk, 64] int16, or in exact mode ``analyze_zz``'s (seq,
+        dc_diff, is_luma)."""
+        return self._analyze_zz(x) if self._exact else self._coefs(x)
+
+    def _fixed_pack(self, coefs, B: int):
+        """Fixed tables: ``_analysis``' output of B images -> (words
+        [B, S, seg_rows*128], totals [B, S]); kernels B, C and D, or B
+        explicit, C and D."""
+        S = self.n_segs
         if self._exact:
             words, totals = fused.analyze_attach_pack_segments(
-                self._lut, *self._analyze_zz(x), B * S, self.seg_rows)
+                self._lut, *coefs, B * S, self.seg_rows)
         else:
-            value, nbits, bits = fused.symbolize_bits(self._coefs(x),
-                                                      self._lut, self.layout)
+            value, nbits, bits = fused.symbolize_bits(coefs, self._lut,
+                                                      self.layout)
             words, totals = kpack.pack_segments(value, nbits, B * S,
                                                 self.seg_rows, bits)
         return words.view(B, S, -1), totals.view(B, S)
+
+    def _symbolize(self, coefs, B: int):
+        """``_analysis``' output of B images -> (packed fields [B*S, nblk,
+        64] int32, per-image histograms [B, 1024] int32): kernel E, or E
+        explicit (``symbolize_segments``) in exact mode."""
+        if self._exact:
+            return fused.symbolize_segments(*coefs, B * self.n_segs, B)
+        return fused.symbolize_fields(coefs, B, self._mask, self.layout)
 
     def dynamic_pack(self, rgbs):
         """Dynamic-table path: batch -> (words [B, S, seg_rows*128] uint32,
@@ -303,7 +323,7 @@ class FastBatchEncoder:
         run = _StreamRun(self)
         analyzed, packed = [], []  # oldest first
         for rgbs in batches:
-            x = self._flat(rgbs)
+            x = flat_batch(rgbs, self.height, self.width)
             depth = self._stream_depth(x.shape[0], sync_depth)
             while len(analyzed) + len(packed) >= depth:
                 if not packed:
@@ -358,12 +378,7 @@ class FastBatchEncoder:
         """Stage 1: [B, H, W*3] u8 -> (packed fields [B*S, nblk, 64] int32,
         per-image histograms [B, 1024] int32): kernels A and E, or in exact
         mode ``analyze_zz`` and E explicit (``symbolize_segments``)."""
-        if self._exact:
-            B = x.shape[0]
-            return fused.symbolize_segments(*self._analyze_zz(x),
-                                            B * self.n_segs, B)
-        return fused.symbolize_fields(self._coefs(x), x.shape[0], self._mask,
-                                      self.layout)
+        return self._symbolize(self._analysis(x), x.shape[0])
 
     @staticmethod
     def _build_tables_batch(h_np: np.ndarray, smooth: bool = False):
@@ -434,23 +449,28 @@ class FastBatchEncoder:
     def _check_batch(self, rgbs) -> torch.Tensor:
         """Validate a [B, H, W, 3] or [B, H, W*3] batch -> [B, H, W*3] u8
         contiguous on ``self.device``."""
-        return self._flat(rgbs).to(self.device).contiguous()
+        x = flat_batch(rgbs, self.height, self.width)
+        return x.to(self.device).contiguous()
 
-    def _flat(self, rgbs) -> torch.Tensor:
-        """Validate a [B, H, W, 3] or [B, H, W*3] batch -> [B, H, W*3] u8,
-        where it lies."""
-        if isinstance(rgbs, np.ndarray):
-            rgbs = torch.from_numpy(np.ascontiguousarray(rgbs))
-        rgbs = torch.as_tensor(rgbs)
-        if rgbs.dtype != torch.uint8:
-            rgbs = rgbs.to(torch.uint8)
-        flat = (self.height, self.width * 3)
-        if tuple(rgbs.shape[1:]) != flat:
-            if tuple(rgbs.shape[1:]) != (self.height, self.width, 3):
-                raise ValueError(f"batch shape {tuple(rgbs.shape)} != "
-                                 f"{self.height}x{self.width}")
-            rgbs = rgbs.reshape(rgbs.shape[0], *flat)
-        return rgbs
+
+def flat_batch(rgbs, height: int, width: int,
+               differs: str = "!=") -> torch.Tensor:
+    """Validate a [B, H, W, 3] or [B, H, W*3] batch of an encoder of
+    ``height`` x ``width`` -> [B, H, W*3] u8, where it lies.  A batch of
+    another shape raises "batch shape (..) {differs} {H}x{W}", worded as
+    ``jpeg_tpu``'s encoder of the caller words it."""
+    if isinstance(rgbs, np.ndarray):
+        rgbs = torch.from_numpy(np.ascontiguousarray(rgbs))
+    rgbs = torch.as_tensor(rgbs)
+    if rgbs.dtype != torch.uint8:
+        rgbs = rgbs.to(torch.uint8)
+    flat = (height, width * 3)
+    if tuple(rgbs.shape[1:]) != flat:
+        if tuple(rgbs.shape[1:]) != (height, width, 3):
+            raise ValueError(f"batch shape {tuple(rgbs.shape)} {differs} "
+                             f"{height}x{width}")
+        rgbs = rgbs.reshape(rgbs.shape[0], *flat)
+    return rgbs
 
 
 def _used_words(totals_np: np.ndarray, seg_words: int) -> int:

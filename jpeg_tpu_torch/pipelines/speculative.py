@@ -53,7 +53,8 @@ import torch
 
 from ..kernels import huffdec as hd
 from ..ops.color import SAMPLING_GEOMETRY
-from .decode import _em_to_planes, _parse_device_eligible, reconstruct_items
+from .decode import (_em_to_planes, _parse_device_eligible, check_mesh,
+                     reconstruct_items)
 from .encode import _device
 
 _SLACK = 384          # bytes past the chunk end each lane can read (one
@@ -70,16 +71,9 @@ def _auto_lane_bytes(total_bytes: int) -> int:
     return int(min(4096, max(512, total_bytes // _LANE_TARGET)))
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "speculative decode over a mesh: multi-device decode is not "
-            "ported yet (ROADMAP queue 1 item 12)")
-
-
 def _spec_scans(scan_list, device: str | torch.device = "cuda",
                 target_lane_bytes: int | None = None,
-                sampling: str = "gray"):
+                sampling: str = "gray", mesh=None, mesh_axis: str = "space"):
     """Decode a list of (entropy, table quad, nblk) scans in one combined
     speculative launch -> list of zz [nblk, 64] int32 tensors on
     ``device`` (block emission order), or None (the caller decodes on the
@@ -88,15 +82,16 @@ def _spec_scans(scan_list, device: str | torch.device = "cuda",
     ``sampling`` selects the MCU pattern of every chain: "gray" for
     single-component scans (tables at quad rows 0/1), or an interleaved
     mode, whose lanes also guess the MCU phase of their first block.
+    ``mesh``: the ranks of its ``mesh_axis`` share every launch's lanes.
     """
     lanes = scan_lanes(scan_list, _device(device), target_lane_bytes,
-                       sampling)
+                       sampling, mesh, mesh_axis)
     return None if lanes is None else _spec_lanes(lanes)
 
 
 def scan_lanes(scan_list, dev: torch.device,
                target_lane_bytes: int | None = None,
-               sampling: str = "gray"):
+               sampling: str = "gray", mesh=None, mesh_axis: str = "space"):
     """The lanes of a list of (entropy, quad, nblk) scans, or None where a
     scan holds RSTn markers (the restart path is better)."""
     if target_lane_bytes is None:
@@ -108,7 +103,8 @@ def scan_lanes(scan_list, dev: torch.device,
         if len(segs) != 1:
             return None
         chains.append((segs[0], quad, nblk))
-    return prepare_lanes(chains, dev, target_lane_bytes, sampling)
+    return prepare_lanes(chains, dev, target_lane_bytes, sampling, mesh,
+                         mesh_axis)
 
 
 @dataclass
@@ -126,6 +122,8 @@ class SpecLanes:
     chain: np.ndarray       # [S] chain of each lane
     head: np.ndarray        # [S] bool, the first lane of its chain
     need: list              # true block count of each chain
+    mesh: object = None     # the ranks of its mesh_axis share the lanes
+    mesh_axis: str = "space"
 
     @property
     def period(self) -> int:
@@ -133,11 +131,13 @@ class SpecLanes:
 
 
 def prepare_lanes(chains, dev: torch.device, target_lane_bytes: int,
-                  sampling: str) -> SpecLanes:
+                  sampling: str, mesh=None,
+                  mesh_axis: str = "space") -> SpecLanes:
     """Chunk every (un-stuffed bytes, quad, nblk) chain into lanes of
     about ``target_lane_bytes`` (at most 256 a chain), each reading
     ``_SLACK`` bytes past its chunk, and put the kernels' inputs on
-    ``dev``."""
+    ``dev`` (the kernels run over ``mesh``'s ``mesh_axis`` when given)."""
+    check_mesh(mesh, dev)
     rows, tabs, chain, starts, limits, prior = [], [], [], [], [], []
     period = len(hd._PATTERN[sampling])
     for i, (b, quad, nblk) in enumerate(chains):
@@ -169,7 +169,7 @@ def prepare_lanes(chains, dev: torch.device, target_lane_bytes: int,
                      _put(dev, limit_bits), max_words,
                      np.asarray(starts, np.int64), limit_bits,
                      np.asarray(prior, np.int64), chain, head,
-                     [int(n) for _, _, n in chains])
+                     [int(n) for _, _, n in chains], mesh, mesh_axis)
 
 
 def _put(dev, *arrays) -> torch.Tensor:
@@ -183,9 +183,10 @@ def positions(lanes: SpecLanes, entries: np.ndarray, phases: np.ndarray,
     each lane's row -> (exits, counts, bad) as host int64 arrays."""
     dev = lanes.streams.device
     ep = _put(dev, entries, phases)
-    out = torch.stack(hd.scan_positions(
-        lanes.streams, *lanes.tables, ep[0:1], lanes.limits, cap_blocks=cap,
-        max_words=lanes.max_words, sampling=lanes.sampling, phase=ep[1:2]))
+    out = torch.stack(hd.scan_positions_sharded(
+        lanes.mesh, lanes.streams, *lanes.tables, ep[0:1], lanes.limits,
+        cap_blocks=cap, max_words=lanes.max_words, sampling=lanes.sampling,
+        phase=ep[1:2], axis=lanes.mesh_axis))
     return tuple(out.cpu().numpy().astype(np.int64))
 
 
@@ -280,7 +281,8 @@ def _spec_lanes(lanes: SpecLanes):
     if fx is None:
         return None
     args, kw = payload_inputs(lanes, *fx)
-    out = hd.decode_segments(*args, **kw)
+    out = hd.decode_segments_sharded(lanes.mesh, *args,
+                                     axis=lanes.mesh_axis, **kw)
     dev = out.device
     head_of = np.flatnonzero(lanes.head)[np.cumsum(lanes.head) - 1]
     zz = _stitch(out, args[4][0].to(torch.int64),
@@ -460,21 +462,24 @@ def _reconstruct_spec(p, zzs) -> torch.Tensor:
 
 
 def speculative_decode(data: bytes, device: str | torch.device = "cuda",
-                       target_lane_bytes: int | None = None, mesh=None):
+                       target_lane_bytes: int | None = None, mesh=None,
+                       mesh_axis: str = "space"):
     """Non-restart baseline stream -> [H, W, 3] / [H, W] uint8 on
     ``device``, or None (the caller decodes on the host).
 
     Gray, 3-scan color (the reference's own layout) and interleaved
     single-scan color (default libjpeg output) with MCU-padded component
     grids; all scans share one combined launch of each kernel per round.
+    ``mesh``: the ranks of its ``mesh_axis`` share every launch's lanes
+    (each calls this with the same stream and gets the whole image).
     """
-    _no_mesh(mesh)
     p = _parse_spec(data)
     if p is None:
         return None
     got = _spec_scans(p["scan_list"], device=device,
                       target_lane_bytes=target_lane_bytes,
-                      sampling=p["sampling"])
+                      sampling=p["sampling"], mesh=mesh,
+                      mesh_axis=mesh_axis)
     if got is None:
         return None
     return _reconstruct_spec(p, got)
@@ -495,7 +500,8 @@ def _restart_spec(data: bytes):
 
 def speculative_decode_restart(data: bytes,
                                device: str | torch.device = "cuda",
-                               target_lane_bytes: int | None = None):
+                               target_lane_bytes: int | None = None,
+                               mesh=None, mesh_axis: str = "space"):
     """Restart stream -> uint8 image on ``device``, or None.
 
     Each restart segment is a chain of lanes (``_restart_spec``), so a
@@ -504,7 +510,8 @@ def speculative_decode_restart(data: bytes,
     under 320 segments this way under "device"; the port's routes do not
     (``pipelines.decode``), and this function stays for measuring the
     choice.  The lane split counts the un-stuffed segment bytes
-    (``jpeg_tpu`` counts the stuffed ones).
+    (``jpeg_tpu`` counts the stuffed ones).  ``mesh``: the ranks of its
+    ``mesh_axis`` share every launch's lanes.
     """
     p = _restart_spec(data)
     if p is None:
@@ -514,7 +521,8 @@ def speculative_decode_restart(data: bytes,
         target_lane_bytes = _auto_lane_bytes(sum(len(s) for s in
                                                  info["segs"]))
     got = _spec_lanes(prepare_lanes(p["chains"], _device(device),
-                                    target_lane_bytes, p["sampling"]))
+                                    target_lane_bytes, p["sampling"], mesh,
+                                    mesh_axis))
     if got is None:
         return None
     em = torch.cat(got).reshape(info["mcus"], info["period"], 64)
@@ -526,14 +534,13 @@ def speculative_decode_restart(data: bytes,
 
 def speculative_decode_batch(datas, device: str | torch.device = "cuda",
                              target_lane_bytes: int | None = None,
-                             mesh=None):
+                             mesh=None, mesh_axis: str = "space"):
     """Batch variant -> list of (image or None), one entry per input.
 
     The scans of all images of one sampling share combined launches; if a
     combined call fails (one corrupt stream), its images are decoded one
-    by one before any is given up.
+    by one before any is given up.  ``mesh``: as ``speculative_decode``.
     """
-    _no_mesh(mesh)
     parsed = [_parse_spec(d) for d in datas]
     zzs: list = [None] * len(datas)
     groups: dict = {}
@@ -544,7 +551,7 @@ def speculative_decode_batch(datas, device: str | torch.device = "cuda",
         combined = [s for i in idx for s in parsed[i]["scan_list"]]
         got = _spec_scans(combined, device=device,
                           target_lane_bytes=target_lane_bytes,
-                          sampling=sampling)
+                          sampling=sampling, mesh=mesh, mesh_axis=mesh_axis)
         if got is not None:
             off = 0
             for i in idx:
@@ -555,7 +562,8 @@ def speculative_decode_batch(datas, device: str | torch.device = "cuda",
         for i in idx:  # the combined call failed: salvage per image
             zzs[i] = _spec_scans(parsed[i]["scan_list"], device=device,
                                  target_lane_bytes=target_lane_bytes,
-                                 sampling=sampling)
+                                 sampling=sampling, mesh=mesh,
+                                 mesh_axis=mesh_axis)
     done = [i for i, z in enumerate(zzs) if z is not None]
     imgs = reconstruct_items([_planes_spec(parsed[i], zzs[i])
                               for i in done])

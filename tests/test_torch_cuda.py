@@ -755,6 +755,61 @@ def test_pairwise_batch_equals_cpu(dev):
     assert pairs[1] == [] and pairs[0]
 
 
+@pytest.fixture(scope="module")
+def card_mesh(dev):
+    """A 1x1 mesh on the card: a world-size-1 NCCL group of this process."""
+    import torch.distributed as dist
+    from jpeg_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh()
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mode,dtype", [("fixed", "float32"),
+                                        ("dynamic", "float32"),
+                                        ("dynamic-sampled", "float32"),
+                                        ("dynamic", "float64")])
+def test_sharded_one_rank_equals_fast_and_cpu(card_mesh, mode, dtype):
+    """``ShardedEncoder`` at world size 1 on the card (NCCL): its files
+    equal ``FastBatchEncoder``'s with the same restart interval on the
+    card ("dynamic-sampled": the dynamic mode's, as jpeg_tpu's sharded
+    encoder counts every block) and the CPU path's; then the mesh decode
+    of them equals the decode without a mesh, and the coefficients kernel
+    G gives over the mesh equal the golden decoder's (a decoder that
+    shares no code with G)."""
+    from jpeg_tpu_torch import decode_jpeg_batch
+    from jpeg_tpu_torch.golden import decoder as golden_dec
+    from jpeg_tpu_torch.parallel.sharded import ShardedEncoder
+    from jpeg_tpu_torch.pipelines import decode as pdec
+    imgs = synthetic_batch(np.random.default_rng(37), 2, 160, 96)
+    cfg = dict(scan_layout="interleaved", dtype=dtype)
+    enc = ShardedEncoder(card_mesh, 160, 96,
+                         EncodeConfig(huffman=mode, **cfg), segs_per_device=5)
+    got = enc.encode_batch(imgs)
+    exact = "fixed" if mode == "fixed" else "dynamic"
+    ref = EncodeConfig(huffman=exact, restart_interval_mcu_rows=2, **cfg)
+    assert got == FastBatchEncoder(160, 96, ref, device=card_mesh.device_type
+                                   ).encode_batch(imgs)
+    assert got == FastBatchEncoder(160, 96, ref, device="cpu"
+                                   ).encode_batch(imgs)
+    if dtype == "float64":
+        assert got == [golden.encode(img, scan_layout="interleaved",
+                                     restart_interval_mcu_rows=2)
+                       for img in imgs]
+    plain = decode_jpeg_batch(got, entropy_engine="device")
+    meshed = decode_jpeg_batch(got, entropy_engine="device", mesh=card_mesh)
+    assert all(torch.equal(a, b) for a, b in zip(plain, meshed))
+    infos = [pdec._parse_device_eligible(f) for f in got]
+    zz = pdec._decode_lanes(infos, "cuda", card_mesh).cpu()
+    off = 0
+    for f, inf in zip(got, infos):
+        planes = pdec._planes_of(zz[off:off + len(inf["segs"])], inf)
+        off += len(inf["segs"])
+        comps, coeffs, *_ = golden_dec.parse_coefficients(f)
+        for plane, comp in zip(planes, comps):
+            assert np.array_equal(plane.numpy(), coeffs[comp.comp_id])
+
+
 def test_device_us_retries_then_raises(monkeypatch):
     """chip_smoke.device_us never reads 0: a profile that saw no device
     work is retried, and if none does, it raises.  Needs no card."""

@@ -334,14 +334,19 @@ def test_device_engine_raises_on_non_restart_stream():
     _check_against_jax(out, data, "3-scan 64x64")
 
 
+class _CardMesh:
+    """A stand-in for a mesh of CUDA ranks."""
+    device_type = "cuda"
+
+
 def test_argument_errors():
     data = _restart_file("420", "fixed")
     for fn in (decode_jpeg, decode_jpeg_batch):
         arg = data if fn is decode_jpeg else [data]
         with pytest.raises(ValueError, match="unknown entropy_engine 'x'"):
             fn(arg, entropy_engine="x", device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        decode_jpeg_batch([data], mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="a cuda mesh cannot decode on cpu"):
+        decode_jpeg_batch([data], mesh=_CardMesh(), device="cpu")
     args = _t(*_k16_inputs(data, "420")[:5])
     with pytest.raises(ValueError, match="unknown sampling '411'"):
         hd.decode_segments(*args, "411", 12, args[0].shape[1])

@@ -38,6 +38,11 @@ def _run(code: str, env=None) -> str:
                                     "jpeg_tpu_torch.io.editimage",
                                     "jpeg_tpu_torch.__main__",
                                     "jpeg_tpu_torch.convert",
+                                    "jpeg_tpu_torch.parallel",
+                                    "jpeg_tpu_torch.parallel.mesh",
+                                    "jpeg_tpu_torch.parallel.distributed",
+                                    "jpeg_tpu_torch.parallel.launch",
+                                    "jpeg_tpu_torch.parallel.sharded",
                                     "chip_smoke"])
 def test_import_leaves_jax_and_jpeg_tpu_out(module):
     out = _run(f"import sys, {module}; print(*(any(m == p or "

@@ -526,11 +526,15 @@ def test_kernel_errors_are_never_caught(streams, monkeypatch):
 
 
 def test_mesh_and_sampling_errors(streams):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        spec.speculative_decode_batch([streams["gray"]], device="cpu",
-                                      mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        spec.speculative_decode(streams["gray"], device="cpu", mesh=object())
+    card_mesh = type("CardMesh", (), {"device_type": "cuda"})()
+    for call in (spec.speculative_decode_batch, spec.speculative_decode):
+        arg = [streams["gray"]] if call is spec.speculative_decode_batch \
+            else streams["gray"]
+        with pytest.raises(ValueError, match="a cuda mesh cannot decode"):
+            call(arg, device="cpu", mesh=card_mesh)
+    with pytest.raises(ValueError, match="a cuda mesh cannot decode"):
+        spec.speculative_decode_restart(streams["restart"], device="cpu",
+                                        mesh=card_mesh)
     z = torch.zeros((1, 1), dtype=torch.int32)
     for fn in (lambda: hd.scan_positions(z, z, z, z, z, z, 8, 1, "411"),
                lambda: hd.decode_segments(z, z, z, z, z, "411", 1, 1)):
