@@ -39,7 +39,8 @@
   G and H over its ranks.
 * Tooling: ``python -m jpeg_tpu_torch`` (the seven subcommands of
   ``jpeg_tpu``'s CLI, with ``--device``), ``io`` (PPM, resize/pad),
-  ``utils.profiling`` (``StageTimer``, ``encode_metrics``),
+  ``utils.profiling`` (``encode_metrics``, and the spans: ``span``,
+  ``snapshot``, ``reset``),
   ``utils.stage_dump``, ``utils.dir_compare`` and ``utils.resilience``
   (``probe_device``, and ``ResilientEncoder``: the one, opt-in, host
   fallback, which records every event).
@@ -49,6 +50,15 @@ Huffman decode of the card's routes, runs in the hand-written kernels
 under ``csrc/``; on the CPU the same steps run their plain PyTorch twins.
 The entry points run on the card unless the caller passes
 ``device="cpu"``.
+
+Spans mark the host stages of the encode stream (``encode.submit``,
+``encode.tables``, ``encode.finish``, ``encode.wait``, ``assemble``) and
+of the batch decode (``decode.call``, ``decode.parse``, ``decode.lanes``,
+``decode.fixpoint``, ``decode.round``, ``decode.payload``,
+``decode.reconstruct``).  Tracing is on exactly while a torch profiler
+records: each span then keeps a record (``utils.profiling.snapshot``)
+and its range appears in the profiler's trace as
+``jpeg_tpu_torch.<name>``; otherwise a span costs one flag read.
 
 The package imports neither ``jax`` nor anything of ``jpeg_tpu``: it keeps
 its own copies of the host code it needs (``core``, ``huffman``,

@@ -16,6 +16,8 @@ import time
 
 import numpy as np
 
+from ..utils.profiling import span
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(_HERE, "host.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
@@ -114,26 +116,29 @@ def assemble_interleaved(words: np.ndarray, total_bits: np.ndarray,
     between them, and EOI; images assemble on host threads.
     """
     lib = load()
-    w = np.ascontiguousarray(words, dtype=np.uint32)
-    tb = np.ascontiguousarray(total_bits, dtype=np.int32)
-    n = len(headers)
-    if w.shape[0] != n * n_segs or tb.size != n * n_segs:
-        raise ValueError(f"{w.shape[0]} word rows and {tb.size} totals for "
-                         f"{n} images of {n_segs} segments")
-    hdr = np.frombuffer(b"".join(headers), np.uint8)
-    offs = np.zeros(n + 1, np.int64)
-    np.cumsum([len(h) for h in headers], out=offs[1:])
-    seg_caps = (2 * (tb.astype(np.int64) // 8) + 2).reshape(n, n_segs)
-    stride = int((seg_caps.sum(1) + np.diff(offs)).max()) + 2 * n_segs + 2
-    out = np.empty(n * stride, np.uint8)
-    lens = np.empty(n, np.int64)
-    if n_threads is None:
-        n_threads = min(os.cpu_count() or 1, 16)
-    lib.jt_assemble_interleaved(
-        _ptr(w, _U32P), w.shape[1], _ptr(tb, _I32P), n, n_segs,
-        _ptr(hdr, _U8P), _ptr(offs, _I64P), _ptr(out, _U8P), stride,
-        _ptr(lens, _I64P), int(n_threads))
-    return [out[i * stride:i * stride + lens[i]].tobytes() for i in range(n)]
+    with span("assemble"):
+        w = np.ascontiguousarray(words, dtype=np.uint32)
+        tb = np.ascontiguousarray(total_bits, dtype=np.int32)
+        n = len(headers)
+        if w.shape[0] != n * n_segs or tb.size != n * n_segs:
+            raise ValueError(f"{w.shape[0]} word rows and {tb.size} totals "
+                             f"for {n} images of {n_segs} segments")
+        hdr = np.frombuffer(b"".join(headers), np.uint8)
+        offs = np.zeros(n + 1, np.int64)
+        np.cumsum([len(h) for h in headers], out=offs[1:])
+        seg_caps = (2 * (tb.astype(np.int64) // 8) + 2).reshape(n, n_segs)
+        stride = (int((seg_caps.sum(1) + np.diff(offs)).max())
+                  + 2 * n_segs + 2)
+        out = np.empty(n * stride, np.uint8)
+        lens = np.empty(n, np.int64)
+        if n_threads is None:
+            n_threads = min(os.cpu_count() or 1, 16)
+        lib.jt_assemble_interleaved(
+            _ptr(w, _U32P), w.shape[1], _ptr(tb, _I32P), n, n_segs,
+            _ptr(hdr, _U8P), _ptr(offs, _I64P), _ptr(out, _U8P), stride,
+            _ptr(lens, _I64P), int(n_threads))
+        return [out[i * stride:i * stride + lens[i]].tobytes()
+                for i in range(n)]
 
 
 def build_huff_tables(freqs: np.ndarray):

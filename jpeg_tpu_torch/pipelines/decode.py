@@ -30,6 +30,7 @@ tensors on that device: [H, W, 3] RGB or [H, W] gray.
 from __future__ import annotations
 
 import functools
+import itertools
 import warnings
 
 import numpy as np
@@ -41,8 +42,10 @@ from ..kernels import huffdec as hd
 from ..ops.color import SAMPLING_GEOMETRY
 from ..ops.dct import set_exact_matmul
 from ..utils.guards import check_entropy_engine
+from ..utils.profiling import span
 from .encode import _device
 
+_CALLS = itertools.count()  # decode_jpeg_batch's running call number
 # jpeg_tpu's text for a stream its device paths cannot take
 _HOST_FALLBACK = ("device entropy decode unavailable for this stream (not "
                   "an eligible restart stream and the speculative path was "
@@ -156,20 +159,21 @@ def reconstruct_items(items) -> list[torch.Tensor]:
     for k, item in enumerate(items):
         groups.setdefault((item[0], item[6]), []).append(k)
     out: list = [None] * len(items)
-    for (samp, (ph, pw)), ks in groups.items():
-        ys = torch.stack([items[k][1] for k in ks])
-        qls = torch.from_numpy(np.stack([items[k][4] for k in ks]))
-        if samp == "gray":
-            imgs = reconstruct_gray_batch(ys, qls, ph, pw)
-        else:
-            cbs = torch.stack([items[k][2] for k in ks])
-            crs = torch.stack([items[k][3] for k in ks])
-            qcs = torch.from_numpy(np.stack([items[k][5] for k in ks]))
-            imgs = reconstruct_batch(ys, cbs, crs, qls, qcs, ph, pw,
-                                     samp=samp)
-        for k, img in zip(ks, imgs):
-            h, w = items[k][7]
-            out[k] = img[:h, :w]
+    with span("decode.reconstruct"):
+        for (samp, (ph, pw)), ks in groups.items():
+            ys = torch.stack([items[k][1] for k in ks])
+            qls = torch.from_numpy(np.stack([items[k][4] for k in ks]))
+            if samp == "gray":
+                imgs = reconstruct_gray_batch(ys, qls, ph, pw)
+            else:
+                cbs = torch.stack([items[k][2] for k in ks])
+                crs = torch.stack([items[k][3] for k in ks])
+                qcs = torch.from_numpy(np.stack([items[k][5] for k in ks]))
+                imgs = reconstruct_batch(ys, cbs, crs, qls, qcs, ph, pw,
+                                         samp=samp)
+            for k, img in zip(ks, imgs):
+                h, w = items[k][7]
+                out[k] = img[:h, :w]
     return out
 
 
@@ -296,10 +300,12 @@ def _decode_lanes(infos: list[dict], device, mesh=None,
     -> zz [S, nblk_seg, 64] on ``device``; with a ``mesh``, one launch a
     rank over its share of the segments, gathered within ``mesh_axis``
     (``kernels.huffdec.decode_segments_sharded``)."""
-    *arrays, samp, nblk_seg, max_words = _lane_inputs(infos)
-    lanes = [torch.from_numpy(a).to(device) for a in arrays]
-    return hd.decode_segments_sharded(mesh, *lanes, samp, nblk_seg,
-                                      max_words, axis=mesh_axis)
+    with span("decode.lanes"):
+        *arrays, samp, nblk_seg, max_words = _lane_inputs(infos)
+        lanes = [torch.from_numpy(a).to(device) for a in arrays]
+    with span("decode.payload"):
+        return hd.decode_segments_sharded(mesh, *lanes, samp, nblk_seg,
+                                          max_words, axis=mesh_axis)
 
 
 def _planes_of(zz: torch.Tensor, info: dict):
@@ -440,54 +446,59 @@ def decode_jpeg_batch(datas, entropy_engine: str = "auto",
     same streams and returns every image, equal to the decode without a
     mesh.  ``device`` must be of the mesh's device type.
     """
-    check_entropy_engine(entropy_engine)
-    dev = _device(device)
-    check_mesh(mesh, dev)
-    datas = list(datas)
-    results: list = [None] * len(datas)
-    groups: dict = {}
-    spec_idx = []
-    for i, d in enumerate(datas):
-        info = (_parse_device_eligible(d) if entropy_engine != "host"
-                else None)
-        if info is None:
-            spec_idx.append(i)
-        else:
-            groups.setdefault(info["samp"], []).append((i, info))
-    if spec_idx:
-        if entropy_engine != "host":  # non-restart streams: speculative
-            from .speculative import speculative_decode_batch
-            outs = speculative_decode_batch([datas[i] for i in spec_idx],
-                                            device=dev, mesh=mesh,
-                                            mesh_axis=mesh_axis)
-        else:
-            outs = [None] * len(spec_idx)
-        for i, out in zip(spec_idx, outs):
-            if out is not None:
-                results[i] = out
-                continue
-            if entropy_engine == "device":
-                raise ValueError(f"stream {i} not eligible for device "
-                                 "entropy decode")
-            if entropy_engine == "auto":
-                warnings.warn(f"stream {i}: speculative device decode "
-                              "ineligible or non-converged; falling back "
-                              "to the host entropy decoder", stacklevel=2)
-            results[i] = _host_decode(datas[i], dev)
+    with span("decode.call", next(_CALLS)):
+        check_entropy_engine(entropy_engine)
+        dev = _device(device)
+        check_mesh(mesh, dev)
+        datas = list(datas)
+        results: list = [None] * len(datas)
+        groups: dict = {}
+        spec_idx = []
+        for i, d in enumerate(datas):
+            info = None
+            if entropy_engine != "host":
+                with span("decode.parse"):
+                    info = _parse_device_eligible(d)
+            if info is None:
+                spec_idx.append(i)
+            else:
+                groups.setdefault(info["samp"], []).append((i, info))
+        if spec_idx:
+            if entropy_engine != "host":  # non-restart streams: speculative
+                from .speculative import speculative_decode_batch
+                outs = speculative_decode_batch(
+                    [datas[i] for i in spec_idx], device=dev, mesh=mesh,
+                    mesh_axis=mesh_axis)
+            else:
+                outs = [None] * len(spec_idx)
+            for i, out in zip(spec_idx, outs):
+                if out is not None:
+                    results[i] = out
+                    continue
+                if entropy_engine == "device":
+                    raise ValueError(f"stream {i} not eligible for device "
+                                     "entropy decode")
+                if entropy_engine == "auto":
+                    warnings.warn(f"stream {i}: speculative device decode "
+                                  "ineligible or non-converged; falling "
+                                  "back to the host entropy decoder",
+                                  stacklevel=2)
+                results[i] = _host_decode(datas[i], dev)
 
-    for samp, items in groups.items():
-        # jpeg_tpu first reroutes a group of under 320 segments
-        # (_SPEC_RST_MAX_SEGS, its VPU-lane occupancy) through its
-        # speculative path on a TPU; the port decodes every group here
-        zz = _decode_lanes([inf for _, inf in items], dev, mesh, mesh_axis)
-        planes = []
-        off = 0
-        for i, inf in items:
-            S = len(inf["segs"])
-            y, cb, cr = _planes_of(zz[off:off + S], inf)
-            off += S
-            planes.append((inf["samp"], y, cb, cr, inf["ql"], inf["qc"],
-                           inf["dims"], inf["true_dims"]))
-        for (i, _), img in zip(items, reconstruct_items(planes)):
-            results[i] = img
-    return results
+        for samp, items in groups.items():
+            # jpeg_tpu first reroutes a group of under 320 segments
+            # (_SPEC_RST_MAX_SEGS, its VPU-lane occupancy) through its
+            # speculative path on a TPU; the port decodes every group here
+            zz = _decode_lanes([inf for _, inf in items], dev, mesh,
+                               mesh_axis)
+            planes = []
+            off = 0
+            for i, inf in items:
+                S = len(inf["segs"])
+                y, cb, cr = _planes_of(zz[off:off + S], inf)
+                off += S
+                planes.append((inf["samp"], y, cb, cr, inf["ql"],
+                               inf["qc"], inf["dims"], inf["true_dims"]))
+            for (i, _), img in zip(items, reconstruct_items(planes)):
+                results[i] = img
+        return results

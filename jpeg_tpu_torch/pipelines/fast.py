@@ -37,6 +37,7 @@ take its Pallas front (4:4:4 widths that are a multiple of 8 but not of
 from __future__ import annotations
 
 import contextlib
+import itertools
 
 import numpy as np
 import torch
@@ -52,6 +53,7 @@ from ..kernels.lut import NULL_INDEX, build_combined_lut
 from ..ops import color, dct
 from ..ops.color import LAYOUTS, SAMPLING_GEOMETRY, Y_SAMPLING
 from ..ops.sample import sample_mask
+from ..utils.profiling import span
 
 
 def _possible_symbols():
@@ -485,7 +487,8 @@ class _Batch:
     device tensors, the host copies that are under way, the events they
     wait on and the pinned buffers lent to it."""
 
-    def __init__(self):
+    def __init__(self, key: int):
+        self.key = key         # the batch's number in its stream
         self.pf = self.words = self.totals = self.tables = None
         self.computed = None   # event after the batch's last kernel so far
         self.hist = self.totals_host = None  # (host tensor, event)
@@ -529,6 +532,7 @@ class _StreamRun:
     def __init__(self, enc: FastBatchEncoder):
         self.enc = enc
         self.cuda = enc.device.type == "cuda"
+        self.batches = itertools.count()
         self.meta = self.fetch = None
         if self.cuda:
             self.compute = torch.cuda.current_stream(enc.device)
@@ -575,52 +579,56 @@ class _StreamRun:
     @staticmethod
     def _wait(copy) -> np.ndarray:
         host, done = copy
-        if done is not None:
-            done.synchronize()
-        return host.numpy()
+        with span("encode.wait"):
+            if done is not None:
+                done.synchronize()
+            return host.numpy()
 
     def submit(self, x: torch.Tensor) -> _Batch:
         """Enqueue a checked batch's first device stage: fixed tables its
         whole ``step`` and the totals' copy; dynamic ones A and E and the
         histograms' copy."""
-        job, enc = _Batch(), self.enc
-        with self._on_compute():
-            x = self._upload(job, x.contiguous())
+        job, enc = _Batch(next(self.batches)), self.enc
+        with span("encode.submit", job.key):
+            with self._on_compute():
+                x = self._upload(job, x.contiguous())
+                if enc._fixed is not None:
+                    job.words, job.totals = enc._step(x)
+                else:
+                    job.pf, hist = enc._analyze_hist(x)
+            self._mark(job)
             if enc._fixed is not None:
-                job.words, job.totals = enc._step(x)
+                job.totals_host = self._download(job, job.totals, self.meta)
             else:
-                job.pf, hist = enc._analyze_hist(x)
-        self._mark(job)
-        if enc._fixed is not None:
-            job.totals_host = self._download(job, job.totals, self.meta)
-        else:
-            job.hist = self._download(job, hist, self.meta)
+                job.hist = self._download(job, hist, self.meta)
         return job
 
     def pack(self, job: _Batch) -> _Batch:
         """Dynamic tables: the batch's K.2 builds and LUTs on the host,
         then F, C and D enqueued and the totals' copy."""
         enc = self.enc
-        job.tables, luts = enc._build_tables_batch(self._wait(job.hist),
-                                                   smooth=enc._sampled)
-        with self._on_compute():
-            luts = self._upload(job, torch.from_numpy(luts))
-            job.words, job.totals = enc._pack_only(job.pf, luts)
-        job.pf = None
-        self._mark(job)
-        job.totals_host = self._download(job, job.totals, self.meta)
+        with span("encode.tables", job.key):
+            job.tables, luts = enc._build_tables_batch(
+                self._wait(job.hist), smooth=enc._sampled)
+            with self._on_compute():
+                luts = self._upload(job, torch.from_numpy(luts))
+                job.words, job.totals = enc._pack_only(job.pf, luts)
+            job.pf = None
+            self._mark(job)
+            job.totals_host = self._download(job, job.totals, self.meta)
         return job
 
     def finish(self, job: _Batch) -> list[bytes]:
         """Wait for the batch's totals, fetch its used word prefix, and
         assemble its files."""
         enc = self.enc
-        totals_np = self._wait(job.totals_host).copy()
-        cap = _used_words(totals_np, job.words.shape[-1])
-        prefix = job.words[..., :cap].view(torch.int32)
-        words_np = self._wait(self._download(job, prefix, self.fetch))
-        files = enc._assemble(words_np.view(np.uint32), totals_np,
-                              job.tables)
-        if self.cuda:
-            self.pool.give_back(job)
+        with span("encode.finish", job.key):
+            totals_np = self._wait(job.totals_host).copy()
+            cap = _used_words(totals_np, job.words.shape[-1])
+            prefix = job.words[..., :cap].view(torch.int32)
+            words_np = self._wait(self._download(job, prefix, self.fetch))
+            files = enc._assemble(words_np.view(np.uint32), totals_np,
+                                  job.tables)
+            if self.cuda:
+                self.pool.give_back(job)
         return files

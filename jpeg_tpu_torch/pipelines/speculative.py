@@ -53,6 +53,7 @@ import torch
 
 from ..kernels import huffdec as hd
 from ..ops.color import SAMPLING_GEOMETRY
+from ..utils.profiling import span
 from .decode import (_em_to_planes, _parse_device_eligible, check_mesh,
                      reconstruct_items)
 from .encode import _device
@@ -84,8 +85,9 @@ def _spec_scans(scan_list, device: str | torch.device = "cuda",
     mode, whose lanes also guess the MCU phase of their first block.
     ``mesh``: the ranks of its ``mesh_axis`` share every launch's lanes.
     """
-    lanes = scan_lanes(scan_list, _device(device), target_lane_bytes,
-                       sampling, mesh, mesh_axis)
+    with span("decode.lanes"):
+        lanes = scan_lanes(scan_list, _device(device), target_lane_bytes,
+                           sampling, mesh, mesh_axis)
     return None if lanes is None else _spec_lanes(lanes)
 
 
@@ -182,12 +184,13 @@ def positions(lanes: SpecLanes, entries: np.ndarray, phases: np.ndarray,
     """One launch of kernel H at (entry bit, phase) guesses relative to
     each lane's row -> (exits, counts, bad) as host int64 arrays."""
     dev = lanes.streams.device
-    ep = _put(dev, entries, phases)
-    out = torch.stack(hd.scan_positions_sharded(
-        lanes.mesh, lanes.streams, *lanes.tables, ep[0:1], lanes.limits,
-        cap_blocks=cap, max_words=lanes.max_words, sampling=lanes.sampling,
-        phase=ep[1:2], axis=lanes.mesh_axis))
-    return tuple(out.cpu().numpy().astype(np.int64))
+    with span("decode.round"):
+        ep = _put(dev, entries, phases)
+        out = torch.stack(hd.scan_positions_sharded(
+            lanes.mesh, lanes.streams, *lanes.tables, ep[0:1], lanes.limits,
+            cap_blocks=cap, max_words=lanes.max_words,
+            sampling=lanes.sampling, phase=ep[1:2], axis=lanes.mesh_axis))
+        return tuple(out.cpu().numpy().astype(np.int64))
 
 
 def first_cap(lanes: SpecLanes) -> int:
@@ -277,18 +280,20 @@ def payload_inputs(lanes: SpecLanes, entries, phases, counts):
 def _spec_lanes(lanes: SpecLanes):
     """The fixpoint, the payload and the stitch of one combined launch ->
     each chain's zz [nblk, 64] on the card, or None."""
-    fx = fixpoint(lanes)
+    with span("decode.fixpoint"):
+        fx = fixpoint(lanes)
     if fx is None:
         return None
-    args, kw = payload_inputs(lanes, *fx)
-    out = hd.decode_segments_sharded(lanes.mesh, *args,
-                                     axis=lanes.mesh_axis, **kw)
-    dev = out.device
-    head_of = np.flatnonzero(lanes.head)[np.cumsum(lanes.head) - 1]
-    zz = _stitch(out, args[4][0].to(torch.int64),
-                 kw["phase"][0].to(torch.int64),
-                 torch.from_numpy(head_of).to(dev), lanes.sampling,
-                 sum(lanes.need))
+    with span("decode.payload"):
+        args, kw = payload_inputs(lanes, *fx)
+        out = hd.decode_segments_sharded(lanes.mesh, *args,
+                                         axis=lanes.mesh_axis, **kw)
+        dev = out.device
+        head_of = np.flatnonzero(lanes.head)[np.cumsum(lanes.head) - 1]
+        zz = _stitch(out, args[4][0].to(torch.int64),
+                     kw["phase"][0].to(torch.int64),
+                     torch.from_numpy(head_of).to(dev), lanes.sampling,
+                     sum(lanes.need))
     bounds = np.cumsum([0] + lanes.need)
     return [zz[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
 
@@ -541,7 +546,10 @@ def speculative_decode_batch(datas, device: str | torch.device = "cuda",
     combined call fails (one corrupt stream), its images are decoded one
     by one before any is given up.  ``mesh``: as ``speculative_decode``.
     """
-    parsed = [_parse_spec(d) for d in datas]
+    parsed = []
+    for d in datas:
+        with span("decode.parse"):
+            parsed.append(_parse_spec(d))
     zzs: list = [None] * len(datas)
     groups: dict = {}
     for i, p in enumerate(parsed):

@@ -1,112 +1,132 @@
-"""Observability: stage timers and encode metrics (the port of
-``jpeg_tpu.utils.profiling``).
+"""Observability: spans on the profiler's clock, and encode metrics.
 
 The reference's instrumentation is a gettimeofday stopwatch printing ms
 per stage (``timer()``, ``utils/original.c:84-93``) plus log lines with
 difference counts (``main/main.c:141-143``).  Here:
 
-* ``StageTimer`` — wall-clock per named stage, draining the card
-  (``torch.cuda.synchronize``) when the stage's outputs or the timer's
-  device are on it, so that device work is attributed to its stage;
-* ``encode_metrics`` — structured per-image results: bytes, bits/pixel,
-  and PSNR against the source via the host decoder.
+* ``span(name, key)`` marks a host stage of the program.  Tracing is on
+  exactly while a torch profiler records (the profiler's own flag,
+  ``torch.autograd.profiler._is_profiler_enabled``, read once as the span
+  opens); otherwise ``span`` returns one shared no-op object.  An open
+  span appends ``(name, key, parent, thread, t0_ns, t1_ns)`` to an
+  in-memory list (``snapshot``, ``reset``) and opens
+  ``torch.profiler.record_function("jpeg_tpu_torch." + name)``, so that
+  its range lies in the profiler's trace on the clock of the kernels and
+  copies.  The spans:
 
-For kernel-level traces use ``torch.profiler`` around the step; these
-helpers cover the everyday "where did the milliseconds go" need.
+  - ``encode.submit``, ``encode.tables``, ``encode.finish`` and
+    ``encode.wait`` (each host wait on a copy's event) in
+    ``pipelines/fast.py::_StreamRun``, keyed by the stream's batch number;
+  - ``assemble`` in ``native.assemble_interleaved``;
+  - ``decode.call`` (``decode_jpeg_batch``, keyed by a running call
+    number), ``decode.parse``, ``decode.lanes``, ``decode.fixpoint``,
+    ``decode.round`` (one kernel H launch and its wait),
+    ``decode.payload`` (kernel G and the stitch) and
+    ``decode.reconstruct``.
+
+* ``encode_metrics``: structured per-image results: bytes, bits/pixel,
+  and PSNR against the source via the host decoder.
 """
 from __future__ import annotations
 
-import contextlib
+import threading
 import time
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import record_function
+
+PREFIX = "jpeg_tpu_torch."
+CAP = 65536  # records kept; later ones are dropped and counted
+
+_records: list[list] = []
+_dropped = 0
+_lock = threading.Lock()
+_local = threading.local()
 
 
-def _on_card(out) -> bool:
-    """True if ``out`` (a tensor, or lists, tuples and dicts of them)
-    holds a CUDA tensor."""
-    if torch.is_tensor(out):
-        return out.is_cuda
-    if isinstance(out, dict):
-        out = out.values()
-    elif not isinstance(out, (list, tuple)):
+class _Off:
+    """The span handed out while no profiler records."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
         return False
-    return any(_on_card(o) for o in out)
 
 
-class _StageOutputs:
-    """Mutable holder for a stage's device outputs (see StageTimer.stage)."""
-
-    __slots__ = ("out",)
-
-    def __init__(self):
-        self.out = None
+_OFF = _Off()
 
 
-class StageTimer:
-    """Accumulating per-stage stopwatch.
+class _Span:
+    """One recorded span: its record and its ``record_function`` range."""
 
-    ``device`` is where the timed work runs: on a CUDA device every stage
-    ends in ``torch.cuda.synchronize()``; on the CPU only a stage whose
-    outputs lie on the card does.  A failed synchronization raises (it
-    reports a fault of the card's work).
+    __slots__ = ("name", "key", "_entry", "_range")
 
-    >>> t = StageTimer()
-    >>> with t.stage("dct") as s:
-    ...     s.out = step(batch)      # doctest: +SKIP
-    >>> t.report()                   # doctest: +SKIP
-    """
+    def __init__(self, name: str, key):
+        self.name, self.key = name, key
 
-    def __init__(self, sync: bool = True,
-                 device: str | torch.device = "cuda"):
-        self.sync = sync
-        self.device = torch.device(device)
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
+    def __enter__(self):
+        global _dropped
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        parent, key = None, self.key
+        if stack:
+            plist, pidx, prec = stack[-1]
+            if plist is _records:
+                parent = pidx
+            if key is None:
+                key = prec[1]
+        rec = [self.name, key, parent, threading.get_ident(), 0, None]
+        with _lock:
+            records, idx = _records, len(_records)
+            if idx < CAP:
+                records.append(rec)
+            else:
+                _dropped += 1
+                idx = None
+        self._entry = (records, idx, rec)
+        stack.append(self._entry)
+        self._range = record_function(PREFIX + self.name)
+        self._range.__enter__()
+        rec[4] = time.perf_counter_ns()
+        return None
 
-    def _drain(self, out) -> None:
-        if self.sync and (self.device.type == "cuda" or _on_card(out)):
-            torch.cuda.synchronize()
+    def __exit__(self, *exc):
+        rec = self._entry[2]
+        rec[5] = time.perf_counter_ns()
+        self._range.__exit__(*exc)
+        _local.stack.pop()
+        return False
 
-    def _add(self, name: str, dt: float) -> None:
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        """Time a block of work.  Yields a holder: set ``holder.out`` to the
-        stage's outputs (``measure()`` does this for you); outputs on the
-        card make the stage drain it even when the timer's device is the
-        CPU.
-        """
-        holder = _StageOutputs()
-        t0 = time.perf_counter()
-        try:
-            yield holder
-        finally:
-            self._drain(holder.out)
-            self._add(name, time.perf_counter() - t0)
+def span(name: str, key=None):
+    """A context manager around one host stage.  ``key`` is the batch or
+    call number the spans of one request share; a span without one takes
+    the key of the innermost span open on its thread."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, key)
 
-    def measure(self, name: str, fn, *args, **kwargs):
-        """Run fn under the stage timer, draining the card after it."""
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        self._drain(out)
-        self._add(name, time.perf_counter() - t0)
-        return out
 
-    def report(self) -> dict[str, dict]:
-        return {k: {"total_ms": v * 1000.0,
-                    "count": self.counts[k],
-                    "mean_ms": v * 1000.0 / self.counts[k]}
-                for k, v in self.totals.items()}
+def snapshot() -> tuple[list[tuple], int]:
+    """The records so far, in the order the spans opened, each ``(name,
+    key, parent, thread, t0_ns, t1_ns)`` (``parent`` the index of the
+    innermost span open on the same thread, or None; ``t1_ns`` None while
+    the span is open), and the number of spans dropped past ``CAP``."""
+    with _lock:
+        return [tuple(r) for r in _records], _dropped
 
-    def pretty(self) -> str:
-        # same visual shape as the reference's per-stage prints
-        lines = [f"{name:<42}{r['mean_ms']:10.3f} ms  (x{r['count']})"
-                 for name, r in self.report().items()]
-        return "\n".join(lines)
+
+def reset() -> None:
+    """Forget every record and the dropped count."""
+    global _records, _dropped
+    with _lock:
+        _records, _dropped = [], 0
 
 
 def encode_metrics(rgb, data: bytes, compute_psnr: bool = True) -> dict:
