@@ -6,7 +6,7 @@
 Phases, each of which raises (and so exits non-zero) on any failure:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
-   the build of the eleven CUDA kernels (seven sources) from
+   the build of the twelve CUDA kernels (eight sources) from
    ``jpeg_tpu_torch/csrc`` and of the port's native host library (g++);
 2. every kernel against its plain PyTorch twin on the card, at the shapes
    of a 16x640x640 batch (E with and without the dynamic-sampled mask, F
@@ -108,7 +108,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
       dynamic, at depths 4 and 2 (batch 5 uniform random, the last batch
       half the images): every batch's files must equal ``encode_batch``'s
       on the card, in order, and the heavy batch's first two the CPU
-      path's; then ``BucketedEncoder.encode_any`` of 640x640, 1920x1280,
+      path's, with kernel I (``write_files``) launched once a batch;
+      then ``BucketedEncoder.encode_any`` of 640x640, 1920x1280,
       1919x1079 and 640x640 images against the CPU path, each file
       decoded at its true size.
    h. progressive encode at 1920x1280: ``encode_progressive`` (A, F's
@@ -197,7 +198,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    (the restart cases beside kernel G's route on the same files); H and
    G's speculative mode alone, each beside its twin and bound; C at the
    main paths' three shapes in turns with its twin and ``torch.cumsum``,
-   with the host's cost of C's wrapper and of its parts; every kernel's
+   with the host's cost of C's wrapper and of its parts; kernel I at
+   16x1920x1280 fixed in turns with its twin, its bound and the host's
+   part of a batch's files by I and by the host library, in turns; every
+   kernel's
    device µs per call (torch.profiler: the median of three good profiles,
    a profile that saw no device time or missed an op that every other
    one saw being dropped and replaced, up to four times; no good profile
@@ -241,6 +245,7 @@ from jpeg_tpu_torch import (Area, BucketedEncoder, ChangeMonitor,
 from jpeg_tpu_torch.bitstream import jfif
 from jpeg_tpu_torch.golden import decoder as golden
 from jpeg_tpu_torch.golden import encoder as golden_enc
+from jpeg_tpu_torch.kernels import files as kfiles
 from jpeg_tpu_torch.kernels import (fused, front, launch_counts,
                                     reset_launch_counts)
 from jpeg_tpu_torch.kernels import huffdec as khd
@@ -731,6 +736,74 @@ def place_plain_streams(value, nbits, offs, totals, seg_words: int):
                          totals), totals)
 
 
+# kernel I's cases: name -> (segments a file, files, words a segment,
+# kind).  "random" words have a 0xFF lead byte in every third word;
+# "headers" gives each file a header of its own length; "all_ff" fills a
+# segment with 0xFF; "ends" takes totals of 0, of whole bytes and whose
+# padded tail byte is 0xFF, over 0xFF words (the bytes past each stream
+# are 0xFF too); "dense" makes half the bytes 0xFF and fills half or more
+# of each segment.  FILES_CASES run on the CPU as well; the card's add
+# segments long enough to cut into many items of several rounds each.
+FILES_CASES = {"1": (1, 3, 40, "random"), "4": (4, 3, 40, "random"),
+               "17": (17, 3, 40, "random"), "headers": (4, 5, 40, "headers"),
+               "all_ff": (4, 3, 40, "all_ff"), "ends": (4, 4, 40, "ends"),
+               "b1": (1, 1, 40, "random"), "b16": (1, 16, 40, "random")}
+FILES_CARD_CASES = {**FILES_CASES, "items": (1, 2, 32768, "dense"),
+                    "rounds": (1, 1, 1 << 20, "dense"),
+                    "r80": (80, 16, 1024, "dense")}
+
+
+def files_case(name: str):
+    """Kernel I's case ``name`` -> (words uint32 [B * S, W], totals int32
+    [B * S], the files' header bytes before the SOS header, S)."""
+    n_segs, B, W, kind = FILES_CARD_CASES[name]
+    rng = np.random.default_rng(5 + n_segs if name in ("1", "4")
+                                else len(name) * 31 + B)
+    words = rng.integers(0, 1 << 32, size=(B * n_segs, W),
+                         dtype=np.uint64).astype(np.uint32)
+    words[:, ::3] |= 0xFF000000
+    totals = rng.integers(1, 1270, size=B * n_segs).astype(np.int32)
+    totals[0] = 1024  # ends on a byte boundary
+    if kind == "all_ff":
+        words[1] = 0xFFFFFFFF
+        totals[1] = W * 32
+    elif kind == "ends":
+        words[:4] = 0xFFFFFFFF
+        totals[:8] = [0, 8, 1000, 13, 1275, 0, 7, W * 32]
+    elif kind == "dense":
+        b = rng.integers(0, 256, (B * n_segs, W * 4)).astype(np.uint8)
+        b[rng.random(b.shape) < 0.5] = 0xFF
+        words = b.view(">u4").astype(np.uint32)
+        totals = rng.integers(W * 16, W * 32 + 1,
+                              size=B * n_segs).astype(np.int32)
+    heads = [b"\xff\xd8HDR%d" % i for i in range(B)]
+    if kind == "headers":
+        heads = [h + b"\xff\xfe" + bytes(range(i * 7))
+                 for i, h in enumerate(heads)]
+    return words, totals, heads, n_segs
+
+
+def files_inputs(words: np.ndarray, totals: np.ndarray, headers: list,
+                 dev, shared: bool = False):
+    """Kernel I's tensors on ``dev``: (words, totals, header bytes, header
+    offsets); one shared header and no offsets where ``shared``."""
+    w = torch.from_numpy(words.view(np.int32)).view(torch.uint32).to(dev)
+    t = torch.from_numpy(totals).to(dev)
+    if shared:
+        h = np.frombuffer(headers[0], np.uint8).copy()
+        return w, t, torch.from_numpy(h).to(dev), None
+    offs = np.cumsum([0] + [len(h) for h in headers]).astype(np.int32)
+    h = np.frombuffer(b"".join(headers), np.uint8).copy()
+    return w, t, torch.from_numpy(h).to(dev), torch.from_numpy(offs).to(dev)
+
+
+def files_of(data: torch.Tensor, bounds: torch.Tensor) -> list[bytes]:
+    """Kernel I's (data, bounds) -> the files."""
+    ends = bounds.tolist()
+    data = data[:ends[-1]].cpu().numpy()
+    return [data[a:b].tobytes() for a, b in zip(ends[:-1], ends[1:])]
+
+
 def fields_nbytes(in_bytes: int, nbits: torch.Tensor, n_luts: int) -> int:
     """The bytes kernel B or F must move under the fields contract: its
     input (``in_bytes``), one nbits byte a slot, 16 bytes for each group
@@ -793,11 +866,11 @@ def random_lut(rng: np.random.Generator, dev) -> torch.Tensor:
 def dynamic_split(e: FastBatchEncoder, xd: torch.Tensor,
                   runs: int) -> dict[str, float]:
     """Medians of the parts of one dynamic ``encode_batch``, each ended by
-    a sync: stage 1 (A + E), the histogram fetch, the K.2 builds and LUTs,
-    the LUT upload, stage 2 (F + C + D), the words fetch, the file
-    assembly."""
-    names = ("stage 1", "hist fetch", "K.2 builds + LUTs", "LUT upload",
-             "stage 2", "words fetch", "assembly")
+    a sync: stage 1 (A + E), the histogram fetch, the K.2 builds, LUTs and
+    headers, their upload, stage 2 (F + C + D), kernel I, the files'
+    fetch, cutting them apart."""
+    names = ("stage 1", "hist fetch", "K.2 builds + LUTs + headers",
+             "upload", "stage 2", "write_files", "files fetch", "assembly")
     parts: dict[str, list[float]] = {k: [] for k in names}
     for i in range(3 + runs):
         t = [time.perf_counter()]
@@ -807,16 +880,22 @@ def dynamic_split(e: FastBatchEncoder, xd: torch.Tensor,
         hist = hist.cpu().numpy()
         t.append(time.perf_counter())
         tables, luts = e._build_tables_batch(hist, smooth=e._sampled)
+        headers = e._headers(tables)
         t.append(time.perf_counter())
         luts = torch.from_numpy(luts).to(e.device)
+        headers = tuple(torch.from_numpy(a).to(e.device) for a in headers)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         words, totals = e._pack_only(pf, luts)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        host = e._fetch(words, totals)
+        data, bounds = e._write(words, totals, headers)
+        torch.cuda.synchronize()
         t.append(time.perf_counter())
-        e._assemble(*host, tables)
+        bounds = bounds.cpu().numpy()
+        data = data[:int(bounds[-1])].cpu().numpy()
+        t.append(time.perf_counter())
+        e._assemble(data, bounds)
         t.append(time.perf_counter())
         if i >= 3:  # three warm-up runs
             for k, a, b in zip(names, t, t[1:]):
@@ -1126,6 +1205,11 @@ def stream_phase(cases: list[dict], dev, launches: dict) -> list[tuple]:
                     if counts[name] <= 0:
                         raise AssertionError(f"kernel {name} was not "
                                              f"launched on {label}")
+                if counts["write_files"] != len(batches):
+                    raise AssertionError(f"{label}: kernel write_files "
+                                         f"launched {counts['write_files']}"
+                                         f" times for {len(batches)} "
+                                         f"batches")
                 for name, n in counts.items():
                     launches[name] += n
                 same = sum(g == x for g, x in zip(got, want))
@@ -2733,6 +2817,55 @@ def offsets_timings(dev, rng: np.random.Generator, card: str,
             offsets_host_costs(bits, card)
 
 
+def files_timings(dev, rng: np.random.Generator, card: str,
+                  runs: int) -> None:
+    """Kernel I at the encode stream's shape, 16x1920x1280 fixed: its event
+    ms in turns with its plain twin, its device µs by torch.profiler and
+    its bound (each stream's words and total read, the files written);
+    then the host's part of a batch's files, by the kernel (bounds and
+    files fetched, cut apart) and by the host library (words fetched,
+    ``native.assemble_interleaved``), in turns."""
+    e = FastBatchEncoder(1280, 1920, config("fixed"), device=dev)
+    x = e._check_batch(synthetic_batch(rng, 16, 1280, 1920))
+    words, totals = e.step(x)
+    B, S, W = words.shape
+
+    def kernel():
+        return e._write(words, totals)
+
+    def plain():
+        return kfiles.write_files_plain(words.view(B * S, W),
+                                        totals.view(-1), e._header_dev,
+                                        None, S)
+
+    def by_kernel():
+        data, bounds = kernel()
+        bounds = bounds.cpu().numpy()
+        return e._assemble(data[:int(bounds[-1])].cpu().numpy(), bounds)
+
+    def by_host():
+        w, t = e._fetch(words, totals)
+        return native.assemble_interleaved(w.reshape(B * S, -1),
+                                           t.reshape(-1), [e._header] * B, S)
+    files = by_kernel()
+    if files != by_host():
+        raise AssertionError("kernel I's files differ from the host "
+                             "library's at 16x1920x1280")
+    nbytes = stream_nbytes(totals) + 4 * B * S + sum(map(len, files))
+    p0, k0, k1, p1 = (cuda_ms(f, runs) for f in (plain, kernel, kernel,
+                                                    plain))
+    h0, n0, n1, h1 = (host_ms(f, runs) for f in (by_host, by_kernel,
+                                                  by_kernel, by_host))
+    print(f"timing kernel write_files (I) at 16x1920x1280 fixed on "
+          f"[{card}]: {(k0 + k1) / 2:.4f} ms ({k0:.4f}, {k1:.4f}), plain "
+          f"twin {(p0 + p1) / 2:.4f} ms ({p0:.4f}, {p1:.4f}); bound "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({nbytes} bytes); "
+          f"{device_text(device_us(kernel, runs))}; host ms a batch from "
+          f"words on the card to files: by kernel I {(n0 + n1) / 2:.4f} "
+          f"({n0:.4f}, {n1:.4f}), by the host library {(h0 + h1) / 2:.4f} "
+          f"({h0:.4f}, {h1:.4f}); {sum(map(len, files))} file bytes")
+
+
 def host_us(fn, n: int = 2000, reps: int = 5) -> float:
     """Host µs per call of ``fn``: the median over ``reps`` loops of ``n``
     calls, each loop ended by one sync (the host's cost wherever the
@@ -3805,6 +3938,7 @@ def main() -> int:
               f"{idle:.4f}")
     offsets_timings(dev, np.random.default_rng(args.seed + 8), card,
                     args.runs)
+    files_timings(dev, np.random.default_rng(args.seed + 9), card, args.runs)
     x_big = torch.from_numpy(synthetic_batch(rng2, 1, 1280, 1920)).to(dev)
     scan_kernel_times(x_big.reshape(1, 1280, 1920 * 3), consts, enc._lut,
                       card, args.runs)

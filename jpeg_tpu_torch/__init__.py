@@ -45,9 +45,10 @@
   (``probe_device``, and ``ResilientEncoder``: the one, opt-in, host
   fallback, which records every event).
 
-On a CUDA device every encode step from u8 pixels to packed words, and the
-Huffman decode of the card's routes, runs in the hand-written kernels
-under ``csrc/``; on the CPU the same steps run their plain PyTorch twins.
+On a CUDA device every encode step from u8 pixels to packed words (and
+on to whole files in the interleaved batch encode), and the Huffman
+decode of the card's routes, runs in the hand-written kernels under
+``csrc/``; on the CPU the same steps run their plain PyTorch twins.
 The entry points run on the card unless the caller passes
 ``device="cpu"``.
 

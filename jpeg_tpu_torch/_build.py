@@ -55,6 +55,8 @@ SIGNATURES = {
                         [_VOID] * 8 + [_INT] * 5 + [_VOID]),
     "scan_positions": ("huffdec", "jt_scan_positions",
                        [_VOID] * 8 + [_INT] * 5 + [_VOID]),
+    "write_files": ("write_files", "jt_write_files",
+                    [_VOID] * 7 + [_INT] * 4 + [_VOID]),
 }
 # the sources to build, in SIGNATURES order
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))

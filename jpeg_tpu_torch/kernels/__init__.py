@@ -14,7 +14,7 @@ from .. import _build
 KERNELS = ("front_dct", "front_dct_px", "symbolize_bits",
            "symbolize_bits_explicit", "segment_offsets", "place",
            "symbolize_fields", "symbolize_fields_explicit", "attach_pf",
-           "decode_segments", "scan_positions")
+           "decode_segments", "scan_positions", "write_files")
 
 _launches = dict.fromkeys(KERNELS, 0)
 

@@ -23,9 +23,9 @@ count rows of that MCU.
   fixed tables, or ``symbolize_segments`` (E explicit) -> the K.2 builds
   -> F, C, D for dynamic ones.  Its bytes equal the golden encoder's.
 
-Then the host fetches the used word prefix and the port's
-``native.assemble_interleaved`` writes the files, each with its own
-header.
+Then kernel I (``kernels.files.write_files``) writes the files on the
+device, each with its own header, back to back in one buffer; the host
+fetches their bytes and cuts them apart.
 
 A restart segment is a contiguous range of MCU rows, so a batch of
 ``B`` images with ``S`` segments each is ``B * S`` segments in a row; the
@@ -42,11 +42,11 @@ import itertools
 import numpy as np
 import torch
 
-from .. import native
 from ..bitstream import jfif
 from ..core import tables as T
 from ..core.types import EncodeConfig
 from ..huffman.build import HuffmanTable, build_tables_batch, fixed_tables
+from ..kernels import files as kfiles
 from ..kernels import front, fused
 from ..kernels import pack as kpack
 from ..kernels.lut import NULL_INDEX, build_combined_lut
@@ -217,6 +217,10 @@ class FastBatchEncoder:
         self._interval = self.mcus_per_segment if self.n_segs > 1 else 0
         self._header = (self._file_header(self._fixed)
                         if self._fixed is not None else None)
+        # kernel I's copy of the fixed tables' header, uploaded once
+        self._header_dev = (torch.tensor(list(self._header), dtype=torch.uint8,
+                                         device=self.device)
+                            if self._header is not None else None)
 
     # -- public API ----------------------------------------------------------
 
@@ -281,10 +285,15 @@ class FastBatchEncoder:
         """Batch of [B, H, W, 3] (or [B, H, W*3]) u8 images -> JPEG files."""
         if self._fixed is not None:
             words, totals = self.step(rgbs)
-            tables = None
+            headers = None
         else:
             words, totals, tables = self.dynamic_pack(rgbs)
-        return self._assemble(*self._fetch(words, totals), tables)
+            headers = tuple(torch.from_numpy(a).to(self.device)
+                            for a in self._headers(tables))
+        data, bounds = self._write(words, totals, headers)
+        bounds_np = bounds.cpu().numpy()
+        return self._assemble(data[:int(bounds_np[-1])].cpu().numpy(),
+                              bounds_np)
 
     def encode_stream(self, batches, sync_depth: int = 4):
         """Pipelined multi-batch encode: yields, for each batch of
@@ -295,19 +304,22 @@ class FastBatchEncoder:
         a batch's ``step`` (A, B, C, D) whole; dynamic tables enqueue its
         A and E, and the host runs the previous batch's K.2 builds and
         LUTs while they run, then enqueues that batch's F, C and D behind
-        them.  Inputs and LUTs go up from pinned host buffers
-        (``non_blocking``); the totals, the histograms and each batch's
-        used word prefix come down on two side streams into pinned
-        buffers, each copy ordered after the compute by an event, and the
-        host waits on those events alone.  All kernels run on the stream
+        them.  Kernel I (``kernels.files.write_files``) follows D and
+        writes the batch's files on the card.  Inputs, LUTs and per-image
+        headers go up from pinned host buffers (``non_blocking``); the
+        histograms, the files' bounds and each batch's files come down on
+        two side streams into pinned buffers, each copy ordered after the
+        compute by an event, and the host waits on those events alone,
+        then cuts the files apart.  All kernels run on the stream
         current when the first batch arrives, so kernels C and E keep one
         cached workspace each (``kernels.fused._workspace``) and no launch
         reads a workspace that another is still re-zeroing.
 
         Depth: at most ``sync_depth`` batches are in flight (enqueued and
         not yet yielded).  Each needs about its worst-case words buffer,
-        its input and 16 bytes a coefficient slot of intermediate fields
-        (32 a slot more in the f64 exact mode) on the card; the depth is
+        twice that for its files (``kernels.files.capacity``), its input
+        and 16 bytes a coefficient slot of intermediate fields (32 a slot
+        more in the f64 exact mode) on the card; the depth is
         cut to the number of such batches that fit in the card's free
         memory (``torch.cuda.mem_get_info``) when the batch is enqueued,
         and is never below 1 (``sync_depth=1`` runs batches one by one).
@@ -318,8 +330,8 @@ class FastBatchEncoder:
         ratchet (``_pred_caps``, ``_caps_of``' headroom), ``_CAP_BUCKET``,
         ``_SLICE_CACHE_MAX``, the jitted ``_flat_slice`` executables and
         ``_split_flat``, the background histogram thread, and
-        ``_STREAM_BUDGET_BYTES``: the word prefix is fetched after the
-        totals, per batch, on a copy stream that overlaps later batches'
+        ``_STREAM_BUDGET_BYTES``: the files are fetched after their
+        bounds, per batch, on a copy stream that overlaps later batches'
         kernels.
         """
         run = _StreamRun(self)
@@ -349,7 +361,9 @@ class FastBatchEncoder:
         if self.device.type != "cuda":
             return depth
         slots = self.n_segs * self.blocks_per_seg * 64
-        per_image = (self.n_segs * self.seg_rows * 128 * 4
+        seg_words = self.seg_rows * 128
+        per_image = (self.n_segs * seg_words * 4
+                     + kfiles.capacity(1, self.n_segs, seg_words, 0)
                      + self.height * self.width * 3
                      + slots * (48 if self._exact else 16))
         free, _ = torch.cuda.mem_get_info(self.device)
@@ -364,15 +378,33 @@ class FastBatchEncoder:
         cap = _used_words(totals_np, words.shape[-1])
         return words[..., :cap].cpu().numpy(), totals_np
 
-    def _assemble(self, words_np: np.ndarray, totals_np: np.ndarray,
-                  tables: list | None = None) -> list[bytes]:
-        """Host words and totals -> files; ``tables`` are the per-image
-        Huffman tables (None: the fixed tables)."""
-        B, S, cap = words_np.shape
-        headers = ([self._header] * B if tables is None
-                   else [self._file_header(t) for t in tables])
-        return native.assemble_interleaved(
-            words_np.reshape(B * S, cap), totals_np.reshape(-1), headers, S)
+    def _write(self, words: torch.Tensor, totals: torch.Tensor,
+               headers: tuple[torch.Tensor, torch.Tensor] | None = None):
+        """Kernel I: words [B, S, seg_words] and totals [B, S] -> the
+        batch's files (data uint8, bounds int64 [B + 1]) on the same
+        device; ``headers`` are ``_headers``' (bytes, offsets) there, None
+        the fixed tables' header."""
+        B, S, W = words.shape
+        header, offs = (self._header_dev, None) if headers is None \
+            else headers
+        return kfiles.write_files(words.view(B * S, W), totals.view(B * S),
+                                  header, offs, S)
+
+    def _headers(self, tables: list) -> tuple[np.ndarray, np.ndarray]:
+        """Per-image Huffman tables -> their file headers as (bytes uint8,
+        offsets int32 [B + 1]) for kernel I."""
+        heads = [self._file_header(t) for t in tables]
+        offs = np.zeros(len(heads) + 1, np.int32)
+        np.cumsum([len(h) for h in heads], out=offs[1:])
+        return np.frombuffer(b"".join(heads), np.uint8).copy(), offs
+
+    def _assemble(self, data_np: np.ndarray,
+                  bounds_np: np.ndarray) -> list[bytes]:
+        """The host copy of kernel I's files and their bounds -> the files,
+        one copy each."""
+        with span("assemble"):
+            return [data_np[a:b].tobytes()
+                    for a, b in zip(bounds_np[:-1], bounds_np[1:])]
 
     # -- dynamic-table stages ------------------------------------------------
 
@@ -489,9 +521,9 @@ class _Batch:
 
     def __init__(self, key: int):
         self.key = key         # the batch's number in its stream
-        self.pf = self.words = self.totals = self.tables = None
+        self.pf = self.files = None  # files: kernel I's (data, bounds)
         self.computed = None   # event after the batch's last kernel so far
-        self.hist = self.totals_host = None  # (host tensor, event)
+        self.hist = self.bounds_host = None  # (host tensor, event)
         self.bufs: list[torch.Tensor] = []
 
 
@@ -524,9 +556,9 @@ class _PinnedPool:
 class _StreamRun:
     """The stages of one ``FastBatchEncoder.encode_stream``.  On a CUDA
     device the kernels run on the stream current at the start
-    (``compute``); the histograms and totals come down on ``meta``, the
-    word prefixes on ``fetch``, so that a word copy, which the host
-    enqueues only once it has the totals, never queues behind a copy that
+    (``compute``); the histograms and the files' bounds come down on
+    ``meta``, the files on ``fetch``, so that a file copy, which the host
+    enqueues only once it has the bounds, never queues behind a copy that
     waits for later kernels.  On the CPU every copy is a plain one."""
 
     def __init__(self, enc: FastBatchEncoder):
@@ -586,49 +618,51 @@ class _StreamRun:
 
     def submit(self, x: torch.Tensor) -> _Batch:
         """Enqueue a checked batch's first device stage: fixed tables its
-        whole ``step`` and the totals' copy; dynamic ones A and E and the
-        histograms' copy."""
+        whole ``step``, kernel I and the bounds' copy; dynamic ones A and E
+        and the histograms' copy."""
         job, enc = _Batch(next(self.batches)), self.enc
         with span("encode.submit", job.key):
             with self._on_compute():
                 x = self._upload(job, x.contiguous())
                 if enc._fixed is not None:
-                    job.words, job.totals = enc._step(x)
+                    job.files = enc._write(*enc._step(x))
                 else:
                     job.pf, hist = enc._analyze_hist(x)
             self._mark(job)
             if enc._fixed is not None:
-                job.totals_host = self._download(job, job.totals, self.meta)
+                job.bounds_host = self._download(job, job.files[1],
+                                                 self.meta)
             else:
                 job.hist = self._download(job, hist, self.meta)
         return job
 
     def pack(self, job: _Batch) -> _Batch:
-        """Dynamic tables: the batch's K.2 builds and LUTs on the host,
-        then F, C and D enqueued and the totals' copy."""
+        """Dynamic tables: the batch's K.2 builds, LUTs and headers on the
+        host, then F, C, D and I enqueued and the bounds' copy."""
         enc = self.enc
         with span("encode.tables", job.key):
-            job.tables, luts = enc._build_tables_batch(
+            tables, luts = enc._build_tables_batch(
                 self._wait(job.hist), smooth=enc._sampled)
+            headers = enc._headers(tables)
             with self._on_compute():
                 luts = self._upload(job, torch.from_numpy(luts))
-                job.words, job.totals = enc._pack_only(job.pf, luts)
+                headers = tuple(self._upload(job, torch.from_numpy(a))
+                                for a in headers)
+                job.files = enc._write(*enc._pack_only(job.pf, luts),
+                                       headers)
             job.pf = None
             self._mark(job)
-            job.totals_host = self._download(job, job.totals, self.meta)
+            job.bounds_host = self._download(job, job.files[1], self.meta)
         return job
 
     def finish(self, job: _Batch) -> list[bytes]:
-        """Wait for the batch's totals, fetch its used word prefix, and
-        assemble its files."""
-        enc = self.enc
+        """Wait for the batch's file bounds, fetch its files' bytes, and
+        cut them apart."""
         with span("encode.finish", job.key):
-            totals_np = self._wait(job.totals_host).copy()
-            cap = _used_words(totals_np, job.words.shape[-1])
-            prefix = job.words[..., :cap].view(torch.int32)
-            words_np = self._wait(self._download(job, prefix, self.fetch))
-            files = enc._assemble(words_np.view(np.uint32), totals_np,
-                                  job.tables)
+            bounds_np = self._wait(job.bounds_host)
+            data = job.files[0][:int(bounds_np[-1])]
+            data_np = self._wait(self._download(job, data, self.fetch))
+            files = self.enc._assemble(data_np, bounds_np)
             if self.cuda:
                 self.pool.give_back(job)
         return files

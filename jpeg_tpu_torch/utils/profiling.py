@@ -17,7 +17,11 @@ difference counts (``main/main.c:141-143``).  Here:
   - ``encode.submit``, ``encode.tables``, ``encode.finish`` and
     ``encode.wait`` (each host wait on a copy's event) in
     ``pipelines/fast.py::_StreamRun``, keyed by the stream's batch number;
-  - ``assemble`` in ``native.assemble_interleaved``;
+  - ``assemble``: cutting kernel I's files apart on the host
+    (``pipelines/fast.py::FastBatchEncoder._assemble``, inside
+    ``encode.finish`` in the stream and in ``encode_batch``), and the host
+    library's assembly (``native.assemble_interleaved``, which
+    ``ShardedEncoder`` runs);
   - ``decode.call`` (``decode_jpeg_batch``, keyed by a running call
     number), ``decode.parse``, ``decode.lanes``, ``decode.fixpoint``,
     ``decode.round`` (one kernel H launch and its wait),

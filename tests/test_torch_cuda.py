@@ -18,7 +18,10 @@ from jpeg_tpu_torch import (BucketedEncoder, ChangeMonitor, EncodeConfig,
                             FastBatchEncoder, FrameComparator, JpegEncoder,
                             encode_gray, encode_progressive,
                             encode_progressive_script)
+from jpeg_tpu_torch import native
+from jpeg_tpu_torch.bitstream import jfif
 from jpeg_tpu_torch.golden import encoder as golden
+from jpeg_tpu_torch.kernels import files as kfiles
 from jpeg_tpu_torch.kernels import (fused, front, launch_counts,
                                     reset_launch_counts)
 from jpeg_tpu_torch.ops import color
@@ -27,9 +30,10 @@ from jpeg_tpu_torch.kernels.pack import rows_per_segment
 from jpeg_tpu_torch.ops.dct import set_exact_matmul
 from jpeg_tpu_torch.pipelines.fast import host_constants
 
-from chip_smoke import (BITS_CASES, FIELDS_LAYOUTS, bits_cases,
-                        edge_coefs, explicit_random, fields_cases,
-                        fields_checked, fields_plain, place_checked,
+from chip_smoke import (BITS_CASES, FIELDS_LAYOUTS, FILES_CARD_CASES,
+                        bits_cases, edge_coefs, explicit_random,
+                        fields_cases, fields_checked, fields_plain,
+                        files_case, files_inputs, files_of, place_checked,
                         place_plain_streams, prefilled_fields, random_coefs,
                         random_lut, stream_words, synthetic_batch)
 
@@ -102,7 +106,8 @@ def test_card_bytes_equal_cpu_bytes(dev, mode):
     path = (("symbolize_bits",) if mode == "fixed"
             else ("symbolize_fields", "attach_pf"))
     assert launch_counts() == {
-        k: int(k in ("front_dct", "segment_offsets", "place") + path)
+        k: int(k in ("front_dct", "segment_offsets", "place",
+                     "write_files") + path)
         for k in launch_counts()}
     want = FastBatchEncoder(256, 160, cfg, device="cpu").encode_batch(imgs)
     assert got == want
@@ -207,7 +212,7 @@ def test_f64_card_bytes_equal_golden_and_cpu(dev, mode):
     path = (("symbolize_bits_explicit",) if mode == "fixed"
             else ("symbolize_fields_explicit", "attach_pf"))
     assert launch_counts() == {
-        k: int(k in ("segment_offsets", "place") + path)
+        k: int(k in ("segment_offsets", "place", "write_files") + path)
         for k in launch_counts()}
     assert got == [golden.encode(img, **kw) for img in imgs]
     assert got == FastBatchEncoder(128, 96, cfg,
@@ -680,8 +685,72 @@ def test_encode_stream_equals_encode_batch(dev, mode):
         reset_launch_counts()
         assert list(enc.encode_stream(iter(batches), depth)) == want
         assert launch_counts()["place"] == len(batches)
+        assert launch_counts()["write_files"] == len(batches)
     cpu = FastBatchEncoder(64, 96, enc.config, device="cpu")
     assert want[0][:2] == cpu.encode_batch(batches[0][:2])
+
+
+def test_encode_stream_1920_fixed_equals_batch_and_host_library(dev):
+    """encode_stream at 16x1920x1280 with fixed tables, the benchmark's
+    encode shape: each batch's files equal encode_batch's and the host
+    library's (native.assemble_interleaved) of the batch's fetched words;
+    kernel I launches once a batch."""
+    rng = np.random.default_rng(101)
+    one, two = (synthetic_batch(rng, 16, 1280, 1920) for _ in range(2))
+    batches = [one, two, one]
+    enc = FastBatchEncoder(1280, 1920, EncodeConfig(
+        scan_layout="interleaved", huffman="fixed"), device=dev)
+    reset_launch_counts()
+    got = list(enc.encode_stream(iter(batches), 4))
+    assert launch_counts()["write_files"] == len(batches)
+    assert len(got) == len(batches)
+    for files, batch in zip(got, batches):
+        assert files == enc.encode_batch(batch)
+        words, totals = enc._fetch(*enc.step(batch))
+        B, S, cap = words.shape
+        assert files == native.assemble_interleaved(
+            words.reshape(B * S, cap), totals.reshape(-1),
+            [enc._header] * B, S)
+
+
+@pytest.mark.parametrize("case", list(FILES_CARD_CASES))
+def test_write_files_equals_twin_and_host_library(dev, case):
+    """Kernel I against its plain twin and the host library on every case
+    of ``chip_smoke.FILES_CARD_CASES`` (RST numbers past D7, headers of
+    different lengths, 0xFF segments, totals of 0, of whole bytes and
+    padding to 0xFF, 1 and 16 files, segments cut into many items of
+    several rounds), with each file's own header and, where the files
+    share one, the shared header; one launch a call."""
+    words, totals, heads, n_segs = files_case(case)
+    headers = [h + jfif.sos_header_interleaved() for h in heads]
+    want = native.assemble_interleaved(words, totals, headers, n_segs)
+    for shared in [False] + ([True] if len(set(headers)) == 1 else []):
+        args = files_inputs(words, totals, headers, dev, shared)
+        reset_launch_counts()
+        got = kfiles.write_files(*args, n_segs)
+        torch.cuda.synchronize()
+        assert launch_counts()["write_files"] == 1
+        plain = kfiles.write_files_plain(*args, n_segs)
+        assert torch.equal(got[1], plain[1])
+        assert files_of(*got) == files_of(*plain) == want
+
+
+def test_write_files_back_to_back(dev):
+    """Kernel I launched 60 times in a row on one stream over cases of
+    other grid sizes (each launch must leave its workspace zeroed for the
+    next): every result equals the host library's."""
+    cases = []
+    for name in ("items", "r80", "b16", "17"):
+        words, totals, heads, n_segs = files_case(name)
+        headers = [h + jfif.sos_header_interleaved() for h in heads]
+        cases.append((files_inputs(words, totals, headers, dev), n_segs,
+                      native.assemble_interleaved(words, totals, headers,
+                                                  n_segs)))
+    got = [kfiles.write_files(*cases[i % 4][0], cases[i % 4][1])
+           for i in range(60)]
+    torch.cuda.synchronize()
+    for i, out in enumerate(got):
+        assert files_of(*out) == cases[i % 4][2], i
 
 
 def test_bucketed_encode_any_equals_cpu(dev):

@@ -184,4 +184,4 @@ def test_cpu_wrappers_run_the_plain_twins_and_launch_nothing():
         "symbolize_bits_explicit",
         "segment_offsets", "place", "symbolize_fields",
         "symbolize_fields_explicit", "attach_pf", "decode_segments",
-        "scan_positions"}
+        "scan_positions", "write_files"}

@@ -7,6 +7,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from jpeg_tpu import native as jnative
 from jpeg_tpu.bitstream import jfif as jjfif
@@ -23,7 +24,9 @@ from jpeg_tpu_torch.core import tables as T
 from jpeg_tpu_torch.golden import decoder as golden
 from jpeg_tpu_torch.golden import encoder as golden_enc
 from jpeg_tpu_torch.huffman import build
+from jpeg_tpu_torch.kernels import files as kfiles
 
+from chip_smoke import FILES_CASES, files_case, files_inputs, files_of
 from test_torch_ops import synthetic_images
 
 
@@ -134,16 +137,15 @@ def test_jfif_dri_error_matches():
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("n_segs", [1, 4])
-def test_native_assembly_matches(n_segs):
-    rng = np.random.default_rng(5 + n_segs)
-    B = 3
-    words = rng.integers(0, 1 << 32, size=(B * n_segs, 40),
-                         dtype=np.uint64).astype(np.uint32)
-    words[:, ::3] |= 0xFF000000  # exercise the 0xFF00 stuffing
-    totals = rng.integers(1, 1270, size=B * n_segs).astype(np.int32)
-    totals[0] = 1024  # ends on a byte boundary
-    heads = [b"\xff\xd8HDR%d" % i for i in range(B)]
+@pytest.mark.parametrize("case", list(FILES_CASES))
+def test_native_assembly_matches(case):
+    """The port's host library and kernel I's plain twin
+    (``kernels.files.write_files`` on the CPU) against jpeg_tpu's host
+    library: the same files, byte for byte (``chip_smoke.FILES_CASES``:
+    1, 4 and 17 segments a file, headers of different lengths, a segment
+    of 0xFF words, totals of 0, of whole bytes and whose tail pads to
+    0xFF, 1 and 16 files)."""
+    words, totals, heads, n_segs = files_case(case)
     headers = [h + jfif.sos_header_interleaved() for h in heads]
     got = native.assemble_interleaved(words, totals, headers, n_segs)
     got_scans = native.finish_scans(words, totals)
@@ -160,6 +162,13 @@ def test_native_assembly_matches(n_segs):
             for i, h in enumerate(heads)]
     assert got_scans == want_scans
     assert got == want
+    shares = [False] + ([True] if len(set(headers)) == 1 else [])
+    for shared in shares:  # one header that every image shares, or each own
+        data, bounds = kfiles.write_files(
+            *files_inputs(words, totals, headers, "cpu", shared), n_segs)
+        assert bounds.dtype == torch.int64 and bounds[0] == 0
+        assert int(bounds[-1]) == data.numel()
+        assert files_of(data, bounds) == want
 
 
 def test_golden_decoder_matches_on_a_jpeg_tpu_file():

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from jpeg_tpu_torch import _build, kernels
+from jpeg_tpu_torch.kernels import files as kfiles
 from jpeg_tpu_torch.kernels import fused
 
 
@@ -522,3 +523,50 @@ def test_fields_wrappers_refuse_a_bad_out(fake_launch, kernel, fault):
     with pytest.raises((ValueError, TypeError)):
         call(S, nblk, (value, nbits, bits))
     assert fake_launch == []
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_write_files_hands_i_outputs_and_workspace(monkeypatch, shared):
+    """Kernel I's wrapper, its CUDA branch on CPU tensors: the pointers in
+    the C entry point's order (no header offsets where every image shares
+    one header, and then its length), a worst-case output buffer and int64
+    bounds a call, the workspace sized by the source's rule (here a fake
+    one) and zeroed once a (device, stream); bad inputs raise before any
+    launch."""
+    seen = []
+    monkeypatch.setattr(kfiles, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(kfiles, "launch",
+                        lambda name, device, *args: seen.append((name, args)))
+    monkeypatch.setattr(fused, "stream_handle", lambda index: 5)
+    monkeypatch.setattr(kfiles, "_files_work", {})
+    monkeypatch.setattr(kfiles, "_files_words", lambda n, w: 3 * n + 1)
+    B, S, W = 3, 2, 8
+    words = torch.zeros((B * S, W), dtype=torch.uint32)
+    totals = torch.zeros(B * S, dtype=torch.int32)
+    header = torch.arange(12, dtype=torch.uint8)
+    offs = None if shared else torch.tensor([0, 4, 8, 12], dtype=torch.int32)
+    data, bounds = kfiles.write_files(words, totals, header, offs, S)
+    (name, args), = seen
+    assert name == "write_files"
+    assert args[:3] == (words.data_ptr(), totals.data_ptr(),
+                        header.data_ptr())
+    assert args[3] == (None if shared else offs.data_ptr())
+    assert args[4:6] == (data.data_ptr(), bounds.data_ptr())
+    assert args[7:] == ((12 if shared else 0), B, S, W)
+    assert data.dtype == torch.uint8 and bounds.dtype == torch.int64
+    assert bounds.shape == (B + 1,)
+    assert data.numel() == kfiles.capacity(B, S, W, 12 * (B if shared else 1))
+    (key, work), = kfiles._files_work.items()
+    assert key == (None, 5) and args[6] == work.data_ptr()
+    assert work.dtype == torch.int64 and not work.any()
+    assert work.numel() >= 3 * B * S + 1
+    for bad in (dict(words=words[:, :6].contiguous()),
+                dict(words=words.view(torch.int32)),
+                dict(totals=totals[:-1]),
+                dict(n_segs=4),
+                dict(header_offs=torch.zeros(B, dtype=torch.int32))):
+        kw = dict(words=words, totals=totals, header=header,
+                  header_offs=offs, n_segs=S) | bad
+        with pytest.raises((TypeError, ValueError)):
+            kfiles.write_files(**kw)
+    assert len(seen) == 1

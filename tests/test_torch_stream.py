@@ -103,11 +103,14 @@ def test_encode_stream_takes_tensors_and_any_depth(img_synthetic_160,
 
 
 def test_stream_depth_is_cut_by_free_memory(monkeypatch):
-    """The depth is the number of batches whose worst-case buffers fit in
-    the card's free memory, at most sync_depth and at least 1."""
+    """The depth is the number of batches whose worst-case buffers (the
+    words, kernel I's files, the input, the fields) fit in the card's free
+    memory, at most sync_depth and at least 1."""
     enc = FastBatchEncoder(64, 64, _config("fixed"), device="cpu")
     assert enc._stream_depth(2, 4) == 4 and enc._stream_depth(2, 0) == 1
-    per_image = (enc.n_segs * enc.seg_rows * 128 * 4 + 64 * 64 * 3
+    seg_words = enc.seg_rows * 128
+    per_image = (enc.n_segs * seg_words * 4
+                 + enc.n_segs * (8 * seg_words + 4) + 64 * 64 * 3
                  + enc.n_segs * enc.blocks_per_seg * 64 * 16)
     enc.device = torch.device("cuda", 0)
     for free, want in ((100 * per_image, 4), (5 * per_image, 2),
